@@ -1,0 +1,254 @@
+"""Inference sessions: compile once, predict per batch size.
+
+``compile(model, input_spec, ...)`` owns the NeoCPU lifecycle the paper
+argues belongs to one system (§3): it runs a pass ``Pipeline`` over the
+graph, keeps the schedule database, binds parameters once, and specializes
+the executable per batch size on demand.
+
+    session = compile("resnet-50", (1, 3, 224, 224))          # on "cuda"
+    y = session.predict(x)
+
+The plan and graph JSON codecs are the JAX reference's
+(``repro/engine/session.py``), so a plan made by either package executes
+in the other.  Saving and loading artifacts waits for ROADMAP A6.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.cost import H100, MachineModel
+from repro_torch.core.graph import Graph
+from repro_torch.core.layout import Layout, LayoutKind
+from repro_torch.core.local_search import ScheduleDatabase
+from repro_torch.core.pipeline import Pipeline, Plan
+from repro_torch.core.schedule import ConvSchedule
+from repro_torch.core.transform_elim import PlannedGraph
+from repro_torch.engine.executor import CompiledModel, compile_model
+from repro_torch.nn.init import Params, init_params
+
+
+# ---------------------------------------------------------------------------
+# Plan / graph (de)serialization — the reference's JSON format
+# ---------------------------------------------------------------------------
+
+def _enc_attr(v: Any) -> Any:
+    if isinstance(v, Layout):
+        return {"__layout__": v.kind.value, "block": v.block}
+    if isinstance(v, tuple):
+        return {"__tuple__": [_enc_attr(x) for x in v]}
+    return v
+
+
+def _dec_attr(v: Any) -> Any:
+    if isinstance(v, dict) and "__layout__" in v:
+        kind = LayoutKind(v["__layout__"])
+        return Layout(kind, v["block"]) if kind is LayoutKind.NCHWc \
+            else Layout(kind)
+    if isinstance(v, dict) and "__tuple__" in v:
+        return tuple(_dec_attr(x) for x in v["__tuple__"])
+    return v
+
+
+def _graph_to_json(g: Graph) -> Dict[str, Any]:
+    return {"nodes": [{"name": n.name, "op": n.op, "inputs": list(n.inputs),
+                       "attrs": {k: _enc_attr(v) for k, v in n.attrs.items()},
+                       "shape": list(n.shape) if n.shape else None}
+                      for n in g.topo_order()],
+            "outputs": list(g.outputs)}
+
+
+def _graph_from_json(js: Dict[str, Any]) -> Graph:
+    g = Graph()
+    for rec in js["nodes"]:           # serialized in topo order
+        g.add(rec["name"], rec["op"], rec["inputs"],
+              **{k: _dec_attr(v) for k, v in rec["attrs"].items()})
+        if rec["shape"] is not None:
+            g.nodes[rec["name"]].shape = tuple(rec["shape"])
+    for o in js["outputs"]:
+        g.mark_output(o)
+    return g
+
+
+def _plan_to_json(plan: Plan) -> Dict[str, Any]:
+    p = plan.planned
+    return {
+        "mode": plan.mode,
+        "graph": _graph_to_json(p.graph),
+        "layouts": {name: _enc_attr(lay) for name, lay in p.layouts.items()},
+        "schedules": {name: dataclasses.asdict(s)
+                      for name, s in p.schedules.items()},
+        "n_transforms": p.n_transforms,
+        "transform_bytes_total": p.transform_bytes_total,
+        "predicted": {"conv_s": plan.predicted_conv_s,
+                      "transform_s": plan.predicted_transform_s,
+                      "epilogue_s": plan.predicted_epilogue_s},
+        "report": plan.report.to_json() if plan.report else None,
+    }
+
+
+def _plan_from_json(js: Dict[str, Any]) -> Plan:
+    planned = PlannedGraph(
+        graph=_graph_from_json(js["graph"]),
+        layouts={name: _dec_attr(v) for name, v in js["layouts"].items()},
+        schedules={name: ConvSchedule(**s)
+                   for name, s in js["schedules"].items()},
+        n_transforms=js["n_transforms"],
+        transform_bytes_total=js["transform_bytes_total"])
+    pred = js["predicted"]
+    # solution/fusion/report are plan-time provenance, not needed to execute
+    return Plan(planned=planned, mode=js["mode"], solution=None,
+                predicted_conv_s=pred["conv_s"],
+                predicted_transform_s=pred["transform_s"],
+                predicted_epilogue_s=pred["epilogue_s"])
+
+
+# ---------------------------------------------------------------------------
+# The session
+# ---------------------------------------------------------------------------
+
+class InferenceSession:
+    """One compiled model: plans + bound weights, specialized per batch
+    size.  Create with :func:`compile`.
+
+    ``specialize`` is thread-safe: concurrent requests for the same new
+    batch size compile it exactly once."""
+
+    def __init__(self, *, graph: Graph,
+                 base_shapes: Dict[str, Tuple[int, ...]],
+                 params: Params, pipeline: Pipeline,
+                 db: Optional[ScheduleDatabase] = None,
+                 tuning: str = "roofline",
+                 machine: MachineModel = H100,
+                 dispatch: str = "whole") -> None:
+        self._graph = graph
+        self._base_shapes = {k: tuple(v) for k, v in base_shapes.items()}
+        self._params = params
+        self.pipeline = pipeline
+        self.db = db if db is not None else ScheduleDatabase()
+        self.tuning = tuning
+        self.machine = machine
+        self.dispatch = dispatch
+        self._specialized: Dict[int, CompiledModel] = {}
+        # serializes planning/binding: two threads racing on the same new
+        # batch size must not double-compile
+        self._lock = threading.RLock()
+
+    @property
+    def input_spec(self) -> Dict[str, Tuple[int, ...]]:
+        return dict(self._base_shapes)
+
+    @property
+    def batch_sizes(self):
+        return sorted(self._specialized)
+
+    def plan_for(self, batch: int) -> Plan:
+        return self.specialize(batch).plan
+
+    def _shapes_for(self, batch: int) -> Dict[str, Tuple[int, ...]]:
+        return {k: (batch,) + v[1:] for k, v in self._base_shapes.items()}
+
+    def specialize(self, batch: int) -> CompiledModel:
+        """The executable for one batch size, planning+binding on first
+        use.  Double-checked under the session lock, so concurrent callers
+        of an unseen batch size plan+compile it exactly once."""
+        m = self._specialized.get(batch)     # lock-free fast path
+        if m is not None:
+            return m
+        with self._lock:
+            m = self._specialized.get(batch)
+            if m is not None:                # another thread won the race
+                return m
+            plan = self.pipeline.run(
+                self._graph, self._shapes_for(batch), db=self.db,
+                tuning=self.tuning, machine=self.machine)
+            m = compile_model(plan, self._params, dispatch=self.dispatch)
+            self._specialized[batch] = m
+            return m
+
+    def __call__(self, inputs: Dict[str, torch.Tensor]):
+        batch = int(next(iter(inputs.values())).shape[0])
+        return self.specialize(batch)(inputs)
+
+    def predict(self, x: torch.Tensor):
+        """Single-input convenience (the common CNN case); dispatches to
+        the batch-size specialization of ``x``."""
+        return self.specialize(int(x.shape[0])).predict(x)
+
+
+# ---------------------------------------------------------------------------
+# compile(): the public front door
+# ---------------------------------------------------------------------------
+
+def compile(model: Union[str, Graph],                     # noqa: A001
+            input_spec: Union[Dict[str, Tuple[int, ...]],
+                              Tuple[int, ...], None] = None, *,
+            params: Optional[Params] = None,
+            tuning: str = "roofline",
+            pipeline: Optional[Pipeline] = None,
+            db: Optional[ScheduleDatabase] = None,
+            machine: MachineModel = H100,
+            seed: int = 0,
+            dispatch: str = "whole",
+            device="cuda",
+            eager: bool = True) -> InferenceSession:
+    """Build an :class:`InferenceSession` for a model.
+
+    model       zoo name (``"resnet-50"``) or a ``core.graph.Graph``
+    input_spec  ``{input_name: NCHW shape}``, or a single NCHW tuple for
+                one-input models (zoo names may omit it for the builder's
+                default resolution)
+    params      logical parameters on ``device`` (default: ``init_params``
+                drawn from ``seed``, the reference's draws)
+    tuning      "roofline" — analytical schedule ranking (default);
+                "cached"   — reuse what the schedule database holds,
+                             analytical for misses
+    pipeline    a ``core.pipeline.Pipeline``; default is the full ladder
+                (``Pipeline.preset("fusion")``)
+    machine     the ``MachineModel`` plans are priced on (H100 default)
+    device      where parameters live and the model runs: "cuda" (default)
+                launches the hand-written kernels; "cpu" runs their plain
+                versions
+    eager       plan + bind the input_spec's batch size now (default); the
+                session still specializes other batch sizes on demand
+    """
+    from repro_torch.models.cnn import build as build_zoo
+
+    if isinstance(model, Graph):
+        if not isinstance(input_spec, dict):
+            raise ValueError("compile(Graph, ...) needs input_spec as a "
+                             "{input_name: shape} dict")
+        graph, shapes = model, {k: tuple(v) for k, v in input_spec.items()}
+    else:
+        if input_spec is None:
+            graph, shapes = build_zoo(model)
+        else:
+            if isinstance(input_spec, dict):
+                if len(input_spec) != 1:
+                    raise ValueError(
+                        f"zoo models take exactly one input; got spec keys "
+                        f"{sorted(input_spec)} — pass a Graph for "
+                        "multi-input models")
+                (shape,) = (tuple(v) for v in input_spec.values())
+            else:
+                shape = tuple(input_spec)
+            if len(shape) != 4:
+                raise ValueError(f"expected an NCHW shape, got {shape}")
+            # the zoo builders are parameterized by (batch, image) only
+            if shape[1] != 3 or shape[2] != shape[3]:
+                raise ValueError(
+                    f"zoo models take square RGB inputs (N, 3, S, S); got "
+                    f"{shape} — build the graph yourself for other shapes")
+            graph, shapes = build_zoo(model, batch=shape[0], image=shape[2])
+    if params is None:
+        params = init_params(graph, shapes, seed=seed, device=device)
+    sess = InferenceSession(
+        graph=graph, base_shapes=shapes, params=params,
+        pipeline=pipeline or Pipeline.preset("fusion"), db=db,
+        tuning=tuning, machine=machine, dispatch=dispatch)
+    if eager:
+        sess.specialize(next(iter(shapes.values()))[0])
+    return sess

@@ -1,0 +1,68 @@
+"""Engine-facing conv entries on blocked tensors.
+
+Both consume the NCHW[x]c / KCRS[x]c[y]k tensors the planner produces and
+go through the one conv kernel (``kernels/conv2d_nchwc.py``): the CUDA
+kernel on a CUDA tensor, its plain version on a CPU tensor.  Like the
+reference's Pallas path, the port has one loop nest and ignores the
+schedule's ``variant``; the reference's four XLA lowerings and its int8
+forms wait for ROADMAP A3.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.epilogue import IDENTITY, EpilogueSpec
+from repro_torch.core.layout import from_nchwc, kernel_to_kcrs_ck, to_nchwc
+from repro_torch.core.schedule import ConvSchedule
+from repro_torch.kernels.conv2d_nchwc import apply_epilogue_fp32, conv2d_nchwc
+
+__all__ = ["apply_epilogue_fp32", "conv2d", "conv2d_block_blocked",
+           "conv2d_blocked", "pad_blocked"]
+
+
+def _pad_hw(pad) -> tuple:
+    """Normalize an int-or-(ph, pw) padding spec."""
+    return (pad, pad) if isinstance(pad, int) else tuple(pad)
+
+
+def pad_blocked(x_blocked: torch.Tensor, pad) -> torch.Tensor:
+    ph, pw = _pad_hw(pad)
+    if ph == 0 and pw == 0:
+        return x_blocked
+    return F.pad(x_blocked, (0, 0, pw, pw, ph, ph))
+
+
+def conv2d_blocked(x_blocked: torch.Tensor, w_blocked: torch.Tensor, *,
+                   stride: int = 1, pad=0) -> torch.Tensor:
+    """Plain blocked conv (no epilogue)."""
+    return conv2d_nchwc(pad_blocked(x_blocked, pad), w_blocked, stride=stride)
+
+
+def conv2d_block_blocked(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
+                         scale: Optional[torch.Tensor] = None,
+                         shift: Optional[torch.Tensor] = None,
+                         residual: Optional[torch.Tensor] = None,
+                         out_buf: Optional[torch.Tensor] = None, *,
+                         stride: int = 1, pad=0, relu: bool = False,
+                         epilogue: Optional[EpilogueSpec] = None
+                         ) -> torch.Tensor:
+    """Fused conv_block entry on blocked tensors.  ``scale`` and ``shift``
+    are per-channel vectors pre-blocked to ``(Ko, oc_bn)``; ``residual``
+    arrives in the conv's own NCHW[oc_bn]c output layout, and ``out_buf``
+    (concat fusion) is the shared blocked buffer the epilogue spec's
+    channel-offset store writes into."""
+    spec = (epilogue or IDENTITY).with_relu(relu)
+    return conv2d_nchwc(pad_blocked(x_blocked, pad), w_blocked, scale, shift,
+                        residual, out_buf, stride=stride, epilogue=spec)
+
+
+def conv2d(x_nchw: torch.Tensor, w_kcrs: torch.Tensor, *, stride: int = 1,
+           pad=0, schedule: ConvSchedule) -> torch.Tensor:
+    """Convenience NCHW->NCHW entry: blocks inputs, runs the kernel,
+    unblocks.  The engine never uses this (it keeps tensors blocked)."""
+    xb = to_nchwc(x_nchw, schedule.ic_bn)
+    wb = kernel_to_kcrs_ck(w_kcrs, schedule.ic_bn, schedule.oc_bn)
+    return from_nchwc(conv2d_blocked(xb, wb, stride=stride, pad=pad))

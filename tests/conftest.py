@@ -10,6 +10,9 @@ def pytest_configure(config):
         "markers",
         "slow: slow Pallas interpret-mode tests "
         "(deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card; skips inside the test when none is present")
 
 
 @pytest.fixture

@@ -1,0 +1,124 @@
+"""The port on the card: the conv kernel against its plain version, and the
+launches of a predict.
+
+Every test here needs an NVIDIA card and skips without one.  The file
+imports neither JAX nor the reference, so it also runs on a machine that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.epilogue import EpilogueSpec, PoolSpec
+from repro_torch.core.layout import kernel_to_kcrs_ck, to_nchwc
+from repro_torch.engine import compile
+from repro_torch.kernels import conv2d_nchwc as kmod
+from repro_torch.kernels.ops import pad_blocked
+
+pytestmark = pytest.mark.cuda
+
+# kernel vs plain on one card: fp32 sums in another order
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+# epilogue mode -> (bn, relu, residual, pool kind, concat)
+EPILOGUES = {
+    "none":      (False, False, False, None, False),
+    "bn":        (True, False, False, None, False),
+    "bn_relu":   (True, True, False, None, False),
+    "residual":  (False, False, True, None, False),
+    "max_pool":  (False, False, False, "max", False),
+    "avg_pool":  (False, False, False, "avg", False),
+    "pool_relu": (False, True, False, "max", False),
+    "concat":    (False, False, False, None, True),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _operands(mode, stride, pad, device, *, ic_bn=8, oc_bn=8, hw=11,
+              batch=2, seed=0):
+    bn, relu, residual, pool_kind, concat = EPILOGUES[mode]
+    cin, cout = 2 * ic_bn, 2 * oc_bn
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(rng.normal(size=shape)
+                                .astype(np.float32)).to(device)
+
+    oh = (hw + 2 * pad[0] - 3) // stride + 1
+    ow = (hw + 2 * pad[1] - 3) // stride + 1
+    spec = EpilogueSpec(
+        relu=relu,
+        pool=PoolSpec(pool_kind, 3, 2, 1, True) if pool_kind else None,
+        concat_offset=cout if concat else 0,
+        concat_total=2 * cout if concat else 0)
+    ph, pw = spec.out_hw(oh, ow)
+    args = (pad_blocked(to_nchwc(t((batch, cin, hw, hw)), ic_bn), pad),
+            kernel_to_kcrs_ck(t((cout, cin, 3, 3)), ic_bn, oc_bn),
+            t((cout // oc_bn, oc_bn)) if bn else None,
+            t((cout // oc_bn, oc_bn)) if bn else None,
+            to_nchwc(t((batch, cout, oh, ow)), oc_bn) if residual else None,
+            to_nchwc(t((batch, 2 * cout, ph, pw)), oc_bn) if concat else None)
+    return args, spec
+
+
+@pytest.mark.parametrize("mode", sorted(EPILOGUES))
+@pytest.mark.parametrize("stride", [1, 2])
+def test_kernel_matches_plain_on_card(card, mode, stride):
+    args, spec = _operands(mode, stride, (1, 2), card)
+    before = kmod.conv2d_nchwc.launches
+    got = kmod.conv2d_nchwc(*args, stride=stride, epilogue=spec)
+    torch.cuda.synchronize()
+    assert kmod.conv2d_nchwc.launches == before + 1
+    want = kmod.conv2d_nchwc_plain(*args, stride=stride, epilogue=spec)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_kernel_stem_shape_on_card(card):
+    """ic_bn = 3, as the RGB stem has it, through the pooled epilogue."""
+    args, spec = _operands("pool_relu", 2, (3, 3), card, ic_bn=3, oc_bn=16,
+                           hw=30, batch=1)
+    got = kmod.conv2d_nchwc(*args, stride=2, epilogue=spec)
+    want = kmod.conv2d_nchwc_plain(*args, stride=2, epilogue=spec)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_wrapper_rejects_what_the_kernel_cannot_take(card):
+    args, spec = _operands("residual", 1, (1, 1), card)
+    x, w, _, _, res, _ = args
+    with pytest.raises(ValueError, match="contiguous"):
+        kmod.conv2d_nchwc(x.transpose(2, 3), w)
+    with pytest.raises(TypeError, match="float32"):
+        kmod.conv2d_nchwc(x, w.double())
+    with pytest.raises(ValueError, match="shape"):
+        kmod.conv2d_nchwc(x, w, residual=res[:, :, 1:])
+    with pytest.raises(ValueError, match="is on"):
+        kmod.conv2d_nchwc(x, w.cpu())
+    with pytest.raises(ValueError, match="out_buf"):
+        kmod.conv2d_nchwc(x, w, epilogue=EpilogueSpec(concat_offset=16,
+                                                      concat_total=32))
+
+
+def test_predict_on_card_launches_once_per_blocked_conv(card):
+    sess = compile("resnet-18", (1, 3, 64, 64), device=card)
+    plan = sess.plan_for(1).planned
+    n_blocked = sum(1 for n in plan.graph.topo_order()
+                    if n.op == "conv_block" and plan.layouts[n.name].is_blocked)
+    x = torch.randn(1, 3, 64, 64, device=card)
+    before = kmod.conv2d_nchwc.launches
+    y = sess.predict(x)
+    torch.cuda.synchronize()
+    assert kmod.conv2d_nchwc.launches - before == n_blocked > 0
+    ref = compile("resnet-18", (1, 3, 64, 64), device="cpu")
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               ref.predict(x.cpu()).numpy(), rtol=1e-3,
+                               atol=1e-5)
