@@ -5,20 +5,41 @@
 
 Phases, each a function of a device and a size:
 
-1. build    — compile ``src/repro_torch/csrc/conv2d_nchwc.cu`` with nvcc for
-              sm_90a and print ptxas's registers, shared memory and spills;
-2. kernels  — the conv kernel against its plain PyTorch version on the card,
-              on every distinct conv of ResNet-50's plan at batch 1 (its
-              planned blocks and epilogues), a DenseNet-style concat-offset
-              store and a ceil-mode avg-pool with asymmetric conv pads;
-3. main     — ``compile("resnet-50", (1, 3, 224, 224))`` on the card answers
-              8 batch-1 requests and one batch-8 request; every predict must
-              launch the kernel once per conv_block, and the batch-1 output
-              must match a CPU session of the same seed and plan;
-4. times    — per conv: the kernel, its plain version, cuDNN's conv2d and
-              the roofline bound, with CUDA events; end-to-end predict
-              latency at batch 1 and 8 on the host clock; device time by
-              kernel over batch-1 predicts from a ``torch.profiler`` trace.
+1. build      — compile the three kernels of ``src/repro_torch/csrc``
+                (``conv2d_nchwc.cu`` B1, ``flash_attention.cu`` B3,
+                ``ssd_chunk.cu`` B4) with nvcc for sm_90a, one nvcc each,
+                all started together, and print ptxas's registers, shared
+                memory and spills;
+2. kernels    — B1 against its plain PyTorch version on the card, on every
+                distinct conv of ResNet-50's plan at batch 1 (its planned
+                blocks and epilogues), a DenseNet-style concat-offset store
+                and a ceil-mode avg-pool with asymmetric conv pads;
+3. main       — ``compile("resnet-50", (1, 3, 224, 224))`` on the card
+                answers 8 batch-1 requests and one batch-8 request; every
+                predict must launch B1 once per conv_block, and the batch-1
+                output must match a CPU session of the same seed and plan;
+4. lm_kernels — B3 and B4 against their plain versions on the card, at
+                qwen2-1.5b's prefill shapes and mamba2-130m's, plus ragged,
+                windowed, non-causal, MHA and reduced cases, and B4 with
+                slow, steep and no decay;
+5. lm_main    — ``compile("qwen2-1.5b", (1, 2048))`` answers four requests
+                (a full bucket, an exact bucket, a bucket plus 188 catch-up
+                steps, decode only) and a batch-4 session one request; B3
+                must launch 28 times per prefill.  The same for
+                ``mamba2-130m`` with B4, 24 times per prefill;
+6. lm_parity  — each model at full width, 2 layers, fp32: a session on the
+                card and one on the CPU, from the same weights, agree on
+                the logits of every step and on the greedy tokens under the
+                top-2 margin rule;
+7. times      — per conv: B1, its plain version, cuDNN's conv2d and the
+                roofline bound, with CUDA events; end-to-end predict
+                latency at batch 1 and 8; device time by kernel over
+                batch-1 predicts from a ``torch.profiler`` trace;
+8. lm_times   — B3 per prefill bucket (kernel, plain, SDPA, bound), B4 at
+                mamba2's prefill shapes (kernel, plain, bound); per model
+                prefill ms per bucket, decode ms per token, tokens/s at
+                batch 1 and 4, peak device memory, and the card's idle
+                share over a decode loop from a ``torch.profiler`` trace.
 
 It prints one JSON line per item, the card's ``nvidia-smi`` name and power
 limit, the kernels' summary line, and as its last line
@@ -30,12 +51,14 @@ exits non-zero before printing any result.  Full results also go to
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -44,7 +67,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MODEL, IMAGE, BIG_BATCH = "resnet-50", 224, 8
 KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc.cu"
+KERNEL_NAMES = ("conv2d_nchwc", "flash_attention", "ssd_chunk")
 PEAK_FP32 = 67e12          # H100 SXM fp32 FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
 MEM_BW = 3.35e12           # H100 SXM device-memory bytes/s
 # kernel vs plain on one card: fp32 sums of up to 4,608 terms in another
 # order, on outputs of order 1
@@ -65,21 +90,28 @@ def emit(obj) -> None:
 # 1. build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> dict:
-    from repro_torch.kernels import conv2d_nchwc as k
-
-    info = k.build()
+def _build_report(name: str, info: dict) -> dict:
     ptxas = info["ptxas"]
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", ptxas)]
     smem = [int(m) for m in re.findall(r"(\d+) bytes smem", ptxas)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", ptxas)]
-    out = {"phase": "build", "source": KERNEL_SOURCE,
-           "seconds": info["seconds"], "registers": max(regs, default=None),
-           "smem_bytes": max(smem, default=0),
-           "spill_store_bytes": max(spills, default=0),
-           "ptxas": [ln.strip() for ln in ptxas.splitlines() if ln.strip()]}
-    emit(out)
-    return out
+    return {"phase": "build", "source": f"src/repro_torch/csrc/{name}.cu",
+            "seconds": info["seconds"], "registers": max(regs, default=None),
+            "smem_bytes": max(smem, default=0),
+            "spill_store_bytes": max(spills, default=0),
+            "ptxas": [ln.strip() for ln in ptxas.splitlines() if ln.strip()]}
+
+
+def phase_build() -> list:
+    """One nvcc per source, all started together."""
+    from repro_torch.kernels import build as kbuild
+
+    with ThreadPoolExecutor(len(KERNEL_NAMES)) as pool:
+        infos = list(pool.map(kbuild.build, KERNEL_NAMES))
+    outs = [_build_report(n, i) for n, i in zip(KERNEL_NAMES, infos)]
+    for out in outs:
+        emit(out)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -225,12 +257,12 @@ def phase_main(device, image: int = 224, requests: int = 8,
     x_big = rng.normal(size=(big_batch, 3, image, image)).astype(np.float32)
     on_card = torch.device(device).type == "cuda"
 
-    conv2d_nchwc.launches = 0
     t0 = time.perf_counter()
     session = compile(model, (1, 3, image, image), seed=seed, device=device)
     compile_s = time.perf_counter() - t0
     n_blocks = sum(1 for n in session.plan_for(1).planned.graph.topo_order()
                    if n.op == "conv_block")
+    reset_counts()
     outs, per_predict = [], []
     for x in xs + [x_big]:
         before = conv2d_nchwc.launches
@@ -239,7 +271,11 @@ def phase_main(device, image: int = 224, requests: int = 8,
             torch.cuda.synchronize(device)
         per_predict.append(conv2d_nchwc.launches - before)
         outs.append(y.cpu().numpy())
-    launches = conv2d_nchwc.launches
+    counts = read_counts()
+    launches = counts["conv2d_nchwc"]
+    others = {k: v for k, v in counts.items() if k != "conv2d_nchwc" and v}
+    if others:
+        raise RuntimeError(f"unexpected kernel launches {others}")
 
     want_launches = n_blocks if on_card else 0
     if any(n != want_launches for n in per_predict):
@@ -292,7 +328,7 @@ def phase_main(device, image: int = 224, requests: int = 8,
 
 
 # ---------------------------------------------------------------------------
-# 4. times
+# 7. times
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, iters: int) -> float:
@@ -367,18 +403,394 @@ def phase_profile(session, device, image: int, iters: int = 5) -> dict:
     ``torch.profiler`` trace: what share of a predict each kernel takes and
     how long the card idles.  The profiler's own host cost inflates the
     wall time here, so the idle share is an upper bound."""
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(1, 3, image, image)).astype(np.float32)).to(device)
+    r = _device_busy(lambda: session.predict(x), iters)
+    out = {"phase": "profile", "batch": 1, "iters": iters,
+           "wall_ms_per_predict": r["wall_ms"],
+           "device_ms_per_predict": r["device_ms"],
+           "idle_share": r["idle_share"],
+           "top_ms_per_predict": r["top_ms"]}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4. lm_kernels: B3 and B4 against their plain versions
+# ---------------------------------------------------------------------------
+
+# B3 kernel vs plain: fp32 sums of up to 2,048 terms (scores over D, then
+# the weighted sum over keys) in another order, on outputs of order 1;
+# bf16 inputs, both outputs rounded to bf16 and compared in fp32: the two
+# roundings may differ by one bf16 step (2^-7 relative at most), which the
+# rtol covers; the atol is twice the largest error measured (3.9e-3), so
+# that a wrong tile in the late rows of S = 2,048, whose outputs average
+# ~700 keys to ~0.04, fails
+ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=2e-2, atol=8e-3)}
+# B4 kernel vs plain: fp32 sums of 128 + 256 terms in another order; the
+# inputs are scaled so that c.b is of order 1 and y at most ~16 (no decay)
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+# B4's per-position log-decay steps -dt*A: "slow" lies in Mamba-2's dt*A
+# range and decays exp(-2.7) at most over a 256-token chunk, so every
+# (row tile, column tile) pair adds well above SSD_TOL; "none" (acum = 0)
+# weighs every column alike; "steep" (mean 0.25 per step) checks the
+# exponent's range but hides columns more than ~40 positions back
+SSD_DECAY = {"slow": (1e-3, 2e-2), "steep": (0.01, 0.5), "none": None}
+# LM card vs CPU, fp32 at full width and 2 layers: the same sums through
+# the projections (K up to 8,960) and the head, in another order, compared
+# relative to the largest logit
+LM_LOGIT_TOL = 1e-4
+
+
+def attn_cases() -> list:
+    """(name, B, Hq, Hkv, S, D, causal, window, dtype)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for s in (512, 1024, 2048):
+        for dt in (bf, f32):
+            cases.append((f"qwen2_s{s}_{str(dt)[6:]}", 1, 12, 2, s, 128,
+                          True, 0, dt))
+    cases += [("qwen2_b4_s512_bfloat16", 4, 12, 2, 512, 128, True, 0, bf),
+              ("qwen2_ragged_s700_bfloat16", 1, 12, 2, 700, 128, True, 0, bf),
+              ("window64_d256_s300_float32", 1, 10, 1, 300, 256, True, 64,
+               f32),
+              ("noncausal_s512_float32", 1, 12, 2, 512, 128, False, 0, f32),
+              ("mha_d64_s333_float32", 2, 4, 4, 333, 64, True, 0, f32),
+              ("reduced_d16_s40_float32", 2, 4, 2, 40, 16, True, 0, f32)]
+    return cases
+
+
+def attn_inputs(b, hq, hkv, s, d, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn((b, h, s, d), generator=g).to(device=device,
+                                                         dtype=dtype)
+               for h in (hq, hkv, hkv))
+    return q, k, v
+
+
+def ssd_cases() -> list:
+    """(name, BC, H, Q, N, P, decay): mamba2-130m's prefill at 512, 1,024
+    and 2,048 tokens with slow decay (the first three, which are timed),
+    its 512-token shape with steep and with no decay, and the reduced
+    config's chunk."""
+    return [(f"mamba2_bc{bc}_slow", bc, 24, 256, 128, 64, "slow")
+            for bc in (2, 4, 8)] \
+        + [("mamba2_bc2_steep", 2, 24, 256, 128, 64, "steep"),
+           ("mamba2_bc2_nodecay", 2, 24, 256, 128, 64, "none"),
+           ("reduced_q8_slow", 3, 8, 8, 16, 16, "slow")]
+
+
+def ssd_inputs(bcn, h, q, n, p, device, decay="slow", seed=0):
+    rng = np.random.default_rng(seed)
+    scale = n ** -0.25                 # c.b ~ N(0, 1)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    cc = t(rng.normal(0, scale, size=(bcn, q, n)))
+    bc = t(rng.normal(0, scale, size=(bcn, q, n)))
+    # cumulative decay logs: non-increasing (dt * A with A < 0)
+    steps = SSD_DECAY[decay]
+    acum = t(np.zeros((bcn, h, q)) if steps is None else
+             -np.cumsum(rng.uniform(*steps, size=(bcn, h, q)), axis=-1))
+    xd = t(rng.normal(size=(bcn, h, q, p)))
+    return cc, bc, acum, xd
+
+
+def phase_lm_kernels(device) -> dict:
+    """B3 and B4 against their plain versions; returns the largest abs
+    error of each."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+
+    worst = {"flash_attention": 0.0, "ssd_intra": 0.0}
+    for name, b, hq, hkv, s, d, causal, window, dt in attn_cases():
+        q, k, v = attn_inputs(b, hq, hkv, s, d, dt, device)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize(device)
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"B3 {name}: non-finite kernel output")
+        err = float((got.float() - want.float()).abs().max())
+        emit({"phase": "lm_kernel_vs_plain", "kernel": "flash_attention",
+              "case": name, "max_abs_err": err, **ATTN_TOL[dt]})
+        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+    for name, bcn, h, q, n, p, decay in ssd_cases():
+        args = ssd_inputs(bcn, h, q, n, p, device, decay)
+        got = ssd_intra(*args)
+        want = ssd_intra_plain(*args)
+        torch.cuda.synchronize(device)
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"B4 {name}: non-finite kernel output")
+        err = float((got - want).abs().max())
+        emit({"phase": "lm_kernel_vs_plain", "kernel": "ssd_intra",
+              "case": name, "max_abs_err": err, **SSD_TOL})
+        torch.testing.assert_close(got, want, **SSD_TOL)
+        worst["ssd_intra"] = max(worst["ssd_intra"], err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# 5. lm_main: the LM serving path
+# ---------------------------------------------------------------------------
+
+def _kernel_fns() -> dict:
+    from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_intra
+
+    return {"conv2d_nchwc": conv2d_nchwc, "flash_attention": flash_attention,
+            "ssd_intra": ssd_intra}
+
+
+def reset_counts() -> None:
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
+
+
+def lm_kernel_of(cfg) -> str:
+    return "flash_attention" if cfg.family == "dense" else "ssd_intra"
+
+
+LM_MODELS = ("qwen2-1.5b", "mamba2-130m")
+LM_KERNEL_ROWS = (
+    ("flash_attention", "qwen2-1.5b", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:84"),
+    ("ssd_intra", "mamba2-130m", "src/repro_torch/csrc/ssd_chunk.cu",
+     "src/repro/kernels/ssd_chunk.py:46"))
+LM_REQUESTS = ((2048, 1), (1024, 64), (700, 64), (100, 32))
+LM_BIG = (4, 1024, 512, 32)     # batch, max_len, prompt, new tokens
+
+
+def phase_lm_main(device, model, max_len: int = 2048,
+                  requests=LM_REQUESTS, big=LM_BIG, seed: int = 0) -> dict:
+    """The user's LM path: ``compile(model, (1, max_len))`` answers
+    ``requests`` (prompt length, new tokens), then a batch-``big[0]``
+    session over the same weights answers one request.  Every count is set
+    to 0 just before and read just after; the model's prefill kernel must
+    launch once per layer per prefill on the card, and no other kernel."""
+    from repro_torch.engine import compile
+    from repro_torch.models.lm.model import prefill
+
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed + 1)
+    t0 = time.perf_counter()
+    session = compile(model, (1, max_len), seed=seed, device=device)
+    compile_s = time.perf_counter() - t0
+    cfg = session.cfg
+    kname = lm_kernel_of(cfg)
+    bsz, big_len, big_prompt, big_new = big
+    big_session = compile(cfg, (bsz, big_len), params=session._params,
+                          device=device)
+    work = [(session, (1, n), new) for n, new in requests] \
+        + [(big_session, (bsz, big_prompt), big_new)]
+    prompts = [rng.integers(0, cfg.vocab, size=shape) for _, shape, _ in work]
+
+    reset_counts()
+    outs, per_request, t_gen = [], [], []
+    fns = _kernel_fns()
+    for (sess, shape, new), toks in zip(work, prompts):
+        before = fns[kname].launches
+        t1 = time.perf_counter()
+        outs.append(sess.generate(toks, new))
+        t_gen.append((time.perf_counter() - t1) * 1e3)
+        per_request.append(fns[kname].launches - before)
+    counts = read_counts()
+
+    n_prefills = sum(1 for (sess, shape, _) in work
+                     if sess.bucket_for(shape[1]) is not None)
+    want = [cfg.n_layers if on_card and sess.bucket_for(shape[1]) else 0
+            for sess, shape, _ in work]
+    if per_request != want:
+        raise RuntimeError(f"{model}: {kname} launches per request "
+                           f"{per_request}, expected {want}")
+    others = {k: v for k, v in counts.items() if k != kname and v}
+    if others:
+        raise RuntimeError(f"{model}: unexpected kernel launches {others}")
+    for (sess, shape, new), y in zip(work, outs):
+        if y.shape != (shape[0], new) or y.dtype != np.int32 \
+                or y.min() < 0 or y.max() >= cfg.vocab:
+            raise RuntimeError(f"{model}: bad tokens {y.shape} {y.dtype}")
+    # the last logits of a bucket prefill are finite and of vocab width
+    # (after the counts were read)
+    _, logits = prefill(session._params, cfg,
+                        torch.from_numpy(prompts[0]).to(device),
+                        max_len=max_len)
+    if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"{model}: bad prefill logits {logits.shape}")
+    out = {"phase": "lm_main", "model": session.model_name, "kernel": kname,
+           "requests": [[list(shape), new] for _, shape, new in work],
+           "buckets": [session.seq_buckets, big_session.seq_buckets],
+           "prefills": n_prefills, "launches": counts[kname],
+           "launches_per_request": per_request, "compile_s": compile_s,
+           "generate_ms": t_gen}
+    emit(out)
+    return {"session": session, "big_session": big_session, **out}
+
+
+# ---------------------------------------------------------------------------
+# 6. lm_parity: card vs CPU at full width
+# ---------------------------------------------------------------------------
+
+def _recording(logits_seen: list, feed=None):
+    """A ``pick`` hook for ``LMSession.generate`` that keeps each step's
+    logits (on the host, fp32) and returns the argmax, or with ``feed``
+    (tokens from another run) that step's fed tokens."""
+    def pick(step, logits):
+        logits_seen.append(logits.float().cpu().numpy())
+        if feed is None:
+            return logits.argmax(dim=-1)
+        return torch.from_numpy(feed[:, step])
+    return pick
+
+
+def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
+                    prompt: int = 600, new: int = 8, seed: int = 0,
+                    ref_device="cpu", tol: float = LM_LOGIT_TOL) -> dict:
+    """``model`` at full width, ``n_layers`` layers, fp32: a session on
+    ``device`` and one on ``ref_device`` over the same weights (drawn on
+    the CPU, then moved) run a prompt that takes a bucket and a catch-up.
+    Each step's logits are read through ``generate``'s ``pick`` hook.
+    Teacher-forced with the reference's tokens, every step's logits must
+    agree to ``tol`` of the largest logit; ``generate``'s greedy tokens
+    must be equal at every step whose top-2 margin on the reference
+    exceeds that tolerance, up to the first near-tie that changes a
+    token."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.engine import compile_lm
+    from repro_torch.models.lm.model import init_params, params_to
+
+    base = ARCHS[model] if isinstance(model, str) else model
+    cfg = dataclasses.replace(base, n_layers=n_layers, dtype="float32")
+    params = init_params(cfg, seed=seed, device="cpu")
+    ref = compile_lm(cfg, max_len=max_len, params=params_to(params,
+                                                             ref_device))
+    dut = compile_lm(cfg, max_len=max_len, params=params_to(params, device))
+    toks = np.random.default_rng(seed + 2).integers(0, cfg.vocab,
+                                                    size=(1, prompt))
+    want_logits, got_logits = [], []
+    want_tokens = ref.generate(toks, new, pick=_recording(want_logits))
+    dut.generate(toks, new, pick=_recording(got_logits, feed=want_tokens))
+    errs = []
+    for want, got in zip(want_logits, got_logits):
+        if not np.isfinite(got).all():
+            raise RuntimeError(f"{model}: non-finite logits")
+        scale = float(np.abs(want).max())
+        errs.append(float(np.abs(got - want).max()) / scale)
+    if max(errs) > tol:
+        raise RuntimeError(f"{model}: logits differ by {max(errs):.3g} of "
+                           f"the largest logit (tolerance {tol})")
+    got_tokens = dut.generate(toks, new)
+    compared = 0
+    for i, want in enumerate(want_logits):
+        top2 = np.sort(want[0])[-2:]
+        margin = float(top2[1] - top2[0]) / float(np.abs(want).max())
+        same = got_tokens[0, i] == want_tokens[0, i]
+        if margin > tol:
+            if not same:
+                raise RuntimeError(f"{model}: greedy token {i} differs with "
+                                   f"a top-2 margin of {margin:.3g}")
+            compared += 1
+        elif not same:
+            break
+    out = {"phase": "lm_parity", "model": base.name, "n_layers": n_layers,
+           "dtype": "float32", "prompt": prompt, "bucket":
+           ref.bucket_for(prompt), "new_tokens": new,
+           "max_logit_err_rel": max(errs), "logit_tol_rel": tol,
+           "tokens_compared": compared}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. lm_times
+# ---------------------------------------------------------------------------
+
+def attn_bound(b, hq, hkv, s, d, dtype) -> dict:
+    """Least time of one B3 launch: the causal half of the two products,
+    4 * B * Hq * D * S(S+1)/2 FLOP, over the peak of the input type, or
+    q, k, v and o read or written once over the memory rate."""
+    flop = 4 * b * hq * d * s * (s + 1) // 2
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = elt * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    t_op, t_mem = flop / peak * 1e3, nbytes / MEM_BW * 1e3
+    return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
+            "bound_by": "operations" if t_op >= t_mem else "bytes"}
+
+
+def ssd_bound(bcn, h, q, n, p) -> dict:
+    """Least time of one B4 launch: per chunk the C.B scores of the pairs
+    j <= i (shared by the heads, 2N FLOP each), per head and pair the
+    decay (one exp, one multiply) and the product with x (2P FLOP), over
+    the fp32 peak; or the fp32 inputs read and the output written once."""
+    pairs = q * (q + 1) // 2
+    flop = bcn * pairs * 2 * n + bcn * h * pairs * (2 + 2 * p)
+    nbytes = 4 * (2 * bcn * q * n + bcn * h * q + 2 * bcn * h * q * p)
+    t_op, t_mem = flop / PEAK_FP32 * 1e3, nbytes / MEM_BW * 1e3
+    return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
+            "bound_by": "operations" if t_op >= t_mem else "bytes"}
+
+
+def phase_lm_kernel_times(device, iters: int = 10) -> dict:
+    """B3 at qwen2-1.5b's prefill shapes (bf16, B = 1, the three buckets)
+    and B4 at mamba2-130m's (BC = 2, 4, 8): kernel, plain version, SDPA
+    (B3 only) and bound, each ms with CUDA events."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+
+    rows = {"flash_attention": [], "ssd_intra": []}
+    for s in (512, 1024, 2048):
+        q, k, v = attn_inputs(1, 12, 2, s, 128, torch.bfloat16, device)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+        row = {"phase": "lm_times", "kernel": "flash_attention",
+               "shape": [1, 12, 2, s, 128], "dtype": "bfloat16",
+               "ms": cuda_ms(lambda: flash_attention(q, k, v), iters),
+               "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v),
+                                   iters),
+               "library_ms": cuda_ms(sdpa, iters),
+               **attn_bound(1, 12, 2, s, 128, torch.bfloat16)}
+        emit(row)
+        rows["flash_attention"].append(row)
+    for name, bcn, h, q_, n, p, decay in ssd_cases()[:3]:
+        args = ssd_inputs(bcn, h, q_, n, p, device, decay)
+        row = {"phase": "lm_times", "kernel": "ssd_intra",
+               "shape": [bcn, h, q_, n, p], "dtype": "float32",
+               "ms": cuda_ms(lambda: ssd_intra(*args), iters),
+               "plain_ms": cuda_ms(lambda: ssd_intra_plain(*args), iters),
+               "library_ms": None, **ssd_bound(bcn, h, q_, n, p)}
+        emit(row)
+        rows["ssd_intra"].append(row)
+    return rows
+
+
+def _device_busy(fn, iters: int) -> dict:
+    """Wall ms per call and device ms per call (sum of the card's kernel
+    times) over ``iters`` calls under ``torch.profiler``, and the top
+    kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.from_numpy(np.random.default_rng(8).normal(
-        size=(1, 3, image, image)).astype(np.float32)).to(device)
-    session.predict(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            session.predict(x)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     by_name: dict = {}
@@ -388,13 +800,87 @@ def phase_profile(session, device, image: int, iters: int = 5) -> dict:
                                + e.time_range.elapsed_us() / 1e3 / iters)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {"phase": "profile", "batch": 1, "iters": iters,
-           "wall_ms_per_predict": wall_ms,
-           "device_ms_per_predict": busy if by_name else "not measured",
-           "idle_share": 1 - busy / wall_ms if by_name else "not measured",
-           "top_ms_per_predict": [[name[:80], ms] for name, ms in top]}
+    return {"wall_ms": wall_ms,
+            "device_ms": busy if by_name else "not measured",
+            "idle_share": 1 - busy / wall_ms if by_name else "not measured",
+            "top_ms": [[name[:80], ms] for name, ms in top]}
+
+
+def _host_ms(fn, iters: int) -> list:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
+    """One model's end-to-end numbers on the host clock around work that
+    ends in a synchronize: prefill ms per bucket, decode ms per token at
+    batch 1 and at the batch-4 session, tokens/s, peak device memory of a
+    full-bucket prefill plus decode, and the idle share over a decode loop
+    of the batch-1 session."""
+    from repro_torch.models.lm.model import decode_step, init_cache, prefill
+
+    out = {"phase": "lm_e2e", "model": main_run["model"]}
+    sess, big = main_run["session"], main_run["big_session"]
+    cfg = sess.cfg
+    rng = np.random.default_rng(9)
+    prefill_ms = {}
+    for b in sess.seq_buckets:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, b))
+                                ).to(device)
+        t = _host_ms(lambda: prefill(sess._params, cfg, toks,
+                                     max_len=sess.max_len), 5)
+        prefill_ms[str(b)] = statistics.median(t)
+    out["prefill_ms"] = prefill_ms
+    for label, s in (("batch1", sess), ("batch4", big)):
+        cache = init_cache(cfg, s.batch, s.max_len, device)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(s.batch, 1))
+                               ).to(device)
+        pos = iter(range(s.max_len // 2, s.max_len))
+        t = _host_ms(lambda: decode_step(s._params, cfg, tok, cache,
+                                         next(pos)), decode_steps)
+        ms = statistics.median(t)
+        out[f"decode_ms_{label}"] = ms
+        out[f"decode_tokens_per_s_{label}"] = s.batch * 1e3 / ms
+    # the model's own peak: its weights plus the most that one generate
+    # (a full-bucket prefill, then decode) allocates on top of what is
+    # already resident (other sessions' weights are not counted)
+    toks = rng.integers(0, cfg.vocab, size=(1, sess.max_len - 16))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    sess.generate(toks, 16)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(device) - base
+    weights = sum(t.numel() * t.element_size()
+                  for t in _leaves(sess._params))
+    out.update(weights_bytes=weights, generate_extra_bytes=extra,
+               peak_memory_bytes=weights + extra,
+               peak_memory_request=[int(toks.shape[1]), 16])
+    cache = init_cache(cfg, 1, sess.max_len, device)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 1))).to(device)
+    pos = iter(range(sess.max_len // 2, sess.max_len))
+    prof = _device_busy(lambda: decode_step(sess._params, cfg, tok, cache,
+                                            next(pos)), 16)
+    # the profiler's host cost inflates its wall time; the idle share
+    # against the unprofiled step time is the better estimate
+    if prof["device_ms"] != "not measured":
+        prof["idle_share_unprofiled"] = 1 - prof["device_ms"] / \
+            out["decode_ms_batch1"]
+    out["decode_profile"] = prof
     emit(out)
     return out
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
 # ---------------------------------------------------------------------------
@@ -424,32 +910,57 @@ def main() -> int:
         raise RuntimeError("the plan has no conv_block")
     worst = phase_kernels(device, convs + extra_cases())
     main_run = phase_main(device, IMAGE, big_batch=BIG_BATCH, model=MODEL)
+    lm_worst = phase_lm_kernels(device)
+    lm_runs = {m: phase_lm_main(device, m) for m in LM_MODELS}
+    parity = [phase_lm_parity(device, m) for m in LM_MODELS]
     rows = phase_times(device, convs)
     latency = [phase_latency(main_run["session"], device, IMAGE, b, it)
                for b, it in ((1, 20), (BIG_BATCH, 10))]
     profile = phase_profile(main_run["session"], device, IMAGE)
+    lm_rows = phase_lm_kernel_times(device)
+    lm_e2e = [phase_lm_e2e(lm_runs[m], device) for m in LM_MODELS]
 
     def total(key):
         return sum(r[key] * r["count"] for r in rows)
 
     t_op = sum(r["flop"] * r["count"] for r in rows) / PEAK_FP32 * 1e3
     t_mem = sum(r["bytes"] * r["count"] for r in rows) / MEM_BW * 1e3
-    kernel = {"name": "conv2d_nchwc", "route": "cuda",
-              "source": KERNEL_SOURCE,
-              "replaces": "src/repro/kernels/conv2d_nchwc.py:177",
-              "launches": main_run["launches"], "max_abs_err": worst,
-              "ms": total("ms"), "plain_ms": total("plain_ms"),
-              "bound_ms": total("bound_ms"),
-              "bound_by": "operations" if t_op >= t_mem else "bytes",
-              "library_ms": total("library_ms")}
+    kernels = [{"name": "conv2d_nchwc", "route": "cuda",
+                "source": KERNEL_SOURCE,
+                "replaces": "src/repro/kernels/conv2d_nchwc.py:177",
+                "launches": main_run["launches"], "max_abs_err": worst,
+                "ms": total("ms"), "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"),
+                "bound_by": "operations" if t_op >= t_mem else "bytes",
+                "library_ms": total("library_ms")}]
+    # B3 and B4: per prefill of the largest bucket (2,048 tokens at batch
+    # 1), i.e. one launch per layer at that bucket's shape
+    for name, model, source, replaces in LM_KERNEL_ROWS:
+        run = lm_runs[model]
+        n = run["session"].cfg.n_layers
+        r = lm_rows[name][-1]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": run["launches"],
+            "max_abs_err": lm_worst[name], "ms": n * r["ms"],
+            "plain_ms": n * r["plain_ms"], "bound_ms": n * r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None if r["library_ms"] is None
+            else n * r["library_ms"]})
+    lm_main = [{k: v for k, v in r.items()
+                if k not in ("session", "big_session")}
+               for r in lm_runs.values()]
     result = {"card": smi, "build": build, "convs": rows,
               "main": {k: v for k, v in main_run.items() if k != "session"},
-              "latency": latency, "profile": profile, "kernels": [kernel]}
+              "latency": latency, "profile": profile,
+              "lm_main": lm_main, "lm_parity": parity,
+              "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e,
+              "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     print(smi, flush=True)
-    emit({"kernels": [kernel]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,14 +1,19 @@
-"""Inference engine: bind params to a Plan and execute the planned graph.
+"""Inference engine: bind params to a Plan and execute the planned graph,
+or serve an LM.
 
 ``compile``/``InferenceSession`` (engine/session.py) is the front door —
 plan, bind, specialize per batch size; ``compile_model`` is the lower-level
-bind-one-plan entry it rides on; ``params_from_numpy`` (engine/weights.py)
-brings numpy parameters onto a device.
+bind-one-plan entry it rides on.  An LM name or ``LMConfig`` goes to
+``compile_lm``/``LMSession`` (engine/lm_session.py): seq-bucketed prefill
+and greedy decode.  ``params_from_numpy`` and ``lm_params_from_numpy``
+(engine/weights.py) bring numpy parameters onto a device.
 """
 from repro_torch.engine.executor import (CompiledModel, bind_params,
                                          compile_model)
+from repro_torch.engine.lm_session import LMSession, compile_lm
 from repro_torch.engine.session import InferenceSession, compile
-from repro_torch.engine.weights import params_from_numpy
+from repro_torch.engine.weights import lm_params_from_numpy, params_from_numpy
 
-__all__ = ["CompiledModel", "InferenceSession", "bind_params",
-           "compile", "compile_model", "params_from_numpy"]
+__all__ = ["CompiledModel", "InferenceSession", "LMSession", "bind_params",
+           "compile", "compile_lm", "compile_model", "lm_params_from_numpy",
+           "params_from_numpy"]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -29,6 +29,10 @@ from repro_torch.core.schedule import ConvSchedule
 from repro_torch.core.transform_elim import PlannedGraph
 from repro_torch.engine.executor import CompiledModel, compile_model
 from repro_torch.nn.init import Params, init_params
+
+if TYPE_CHECKING:
+    from repro_torch.engine.lm_session import LMSession
+    from repro_torch.models.lm.config import LMConfig
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +187,7 @@ class InferenceSession:
 # compile(): the public front door
 # ---------------------------------------------------------------------------
 
-def compile(model: Union[str, Graph],                     # noqa: A001
+def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
             input_spec: Union[Dict[str, Tuple[int, ...]],
                               Tuple[int, ...], None] = None, *,
             params: Optional[Params] = None,
@@ -194,13 +198,16 @@ def compile(model: Union[str, Graph],                     # noqa: A001
             seed: int = 0,
             dispatch: str = "whole",
             device="cuda",
-            eager: bool = True) -> InferenceSession:
+            eager: bool = True) -> Union[InferenceSession, "LMSession"]:
     """Build an :class:`InferenceSession` for a model.
 
-    model       zoo name (``"resnet-50"``) or a ``core.graph.Graph``
+    model       zoo name (``"resnet-50"``) or a ``core.graph.Graph``; an
+                LM architecture name (``"qwen2-1.5b"``) or ``LMConfig``
+                goes to ``compile_lm`` and returns an ``LMSession``
     input_spec  ``{input_name: NCHW shape}``, or a single NCHW tuple for
                 one-input models (zoo names may omit it for the builder's
-                default resolution)
+                default resolution); for an LM the ``(batch, max_len)``
+                token shape
     params      logical parameters on ``device`` (default: ``init_params``
                 drawn from ``seed``, the reference's draws)
     tuning      "roofline" — analytical schedule ranking (default);
@@ -216,6 +223,33 @@ def compile(model: Union[str, Graph],                     # noqa: A001
                 session still specializes other batch sizes on demand
     """
     from repro_torch.models.cnn import build as build_zoo
+
+    # LM dispatch: an LMConfig (or assigned-LM-architecture name) routes
+    # to the LM arm — one compiler front door, two workload families.
+    # input_spec is then the (batch, max_len) token shape.
+    from repro_torch.models.lm import LMConfig as _LMConfig
+    lm_model = None
+    if isinstance(model, _LMConfig):
+        lm_model = model
+    elif isinstance(model, str):
+        from repro_torch.configs import ARCHS as _LM_ARCHS
+        if model in _LM_ARCHS:
+            lm_model = model
+    if lm_model is not None:
+        from repro_torch.engine.lm_session import compile_lm
+        spec = input_spec
+        if isinstance(spec, dict):
+            if len(spec) != 1:
+                raise ValueError("LM models take exactly one token input; "
+                                 f"got spec keys {sorted(spec)}")
+            (spec,) = spec.values()
+        if spec is None or len(tuple(spec)) != 2:
+            raise ValueError(
+                "compile(<LM model>, ...) needs input_spec as the "
+                f"(batch, max_len) token shape; got {input_spec!r}")
+        b, max_len = (int(v) for v in spec)
+        return compile_lm(lm_model, max_len=max_len, batch=b, seed=seed,
+                          params=params, device=device)
 
     if isinstance(model, Graph):
         if not isinstance(input_spec, dict):

@@ -1,5 +1,5 @@
 """Parameters from numpy: the bridge that feeds both packages one set of
-weights."""
+weights, for the CNN graphs and for the LMs."""
 from __future__ import annotations
 
 from typing import Any, Mapping
@@ -18,3 +18,23 @@ def params_from_numpy(params: Mapping[str, Mapping[str, Any]],
     return {node: {leaf: torch.tensor(np.array(v), device=device)
                    for leaf, v in leaves.items()}
             for node, leaves in params.items()}
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], device="cuda") -> dict:
+    """The reference's LM parameter pytree (nested dicts whose layer leaves
+    are stacked on a leading layer axis; arrays numpy can read, such as
+    ``repro.models.lm.init_params`` output) as the port's tensors on
+    ``device``, in the same tree, values and types unchanged.  numpy has
+    no bfloat16, so a bf16 leaf travels as float32 and is cast back."""
+    out = {}
+    for key, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            out[key] = lm_params_from_numpy(leaf, device)
+            continue
+        dtype = str(getattr(leaf, "dtype", ""))
+        if dtype == "bfloat16":
+            t = torch.tensor(np.asarray(leaf, np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.tensor(np.array(leaf))
+        out[key] = t.to(device)
+    return out

@@ -1,7 +1,13 @@
 """Hand-written Hopper kernels, their plain versions, and the conv entries.
 
-conv2d_nchwc — the paper's CONV template (Algorithm 1) in NCHW[x]c with the
-fused conv_block epilogue, as a CUDA kernel (``csrc/conv2d_nchwc.cu``) beside
-its plain PyTorch version; ops.py carries the engine-facing entries, ref.py
-the plain oracles.
+conv2d_nchwc    — the paper's CONV template (Algorithm 1) in NCHW[x]c with
+                  the fused conv_block epilogue (B1, ``csrc/conv2d_nchwc.cu``);
+flash_attention — forward attention with an online softmax, the LM
+                  prefill's (B3, ``csrc/flash_attention.cu``);
+ssd_chunk       — the Mamba-2 SSD intra-chunk block (B4,
+                  ``csrc/ssd_chunk.cu``).
+
+Each CUDA kernel sits beside its plain PyTorch version; build.py compiles
+and loads them; ops.py carries the engine-facing conv entries, ref.py the
+plain oracles.
 """

@@ -9,35 +9,21 @@ scale/shift, an optional residual ``(N, Ko, OH, OW, oc_bn)`` at conv
 resolution, and an optional concat buffer.  The source's header says what
 bounds it on the H100 and what its simple design gives up.
 
-It is built on first use with ``nvcc`` for ``sm_90a`` into ``_build/`` of
-this package (listed in ``.gitignore``) as a shared library with a plain C
-entry, loaded with ``ctypes``.  A CPU tensor takes the plain version; a
+It is built on first use by ``kernels/build.py`` (``nvcc`` for ``sm_90a``,
+a plain C entry loaded with ``ctypes``).  A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.core.epilogue import IDENTITY, EpilogueSpec
-
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "conv2d_nchwc.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import build as _build
 
 _POOL_KINDS = {None: 0, "max": 1, "avg": 2}
-_loaded: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -111,53 +97,10 @@ def conv2d_nchwc_plain(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
 # The kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH to build the conv kernel")
-    return found
-
-
-def build() -> dict:
-    """Compile the kernel (once per source and flags) and return
-    ``{"path", "seconds", "ptxas"}``: the shared library, the build's
-    wall-clock seconds (0.0 when it was already built) and nvcc's
-    ``-Xptxas -v`` report of registers, shared memory and spills."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"conv2d_nchwc-{digest}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists() and log.exists():
-        return {"path": lib, "seconds": 0.0, "ptxas": log.read_text()}
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)          # atomic: a concurrent build sees all or none
-    return {"path": lib, "seconds": seconds, "ptxas": log.read_text()}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _loaded.get("lib")
-    if lib is None:
-        lib = ctypes.CDLL(str(build()["path"]))
-        fn = lib.conv2d_nchwc_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 21 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _loaded["lib"] = lib
-    return lib
+def _launch_fn():
+    return _build.entry("conv2d_nchwc", "conv2d_nchwc_launch",
+                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 21
+                        + [ctypes.c_void_p])
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -231,7 +174,7 @@ def conv2d_nchwc(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().conv2d_nchwc_launch(
+        err = _launch_fn()(
             ptr(x_blocked), ptr(w_blocked), ptr(scale), ptr(shift),
             ptr(residual), ptr(out_buf if spec.writes_concat else None),
             ptr(out),

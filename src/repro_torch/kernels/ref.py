@@ -1,7 +1,7 @@
 """Plain oracles for the port's kernels, written from the mathematical
 definition (no ``torch.nn.functional.conv2d``), as the JAX reference's
-``repro/kernels/ref.py`` is.  The matmul and attention oracles wait for
-their kernels (ROADMAP B2, B3).
+``repro/kernels/ref.py`` is.  The matmul oracle waits for its kernel
+(ROADMAP B2).
 """
 from __future__ import annotations
 
@@ -48,3 +48,45 @@ def conv2d_nchwc_ref(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
     w = kernel_from_kcrs_ck(w_blocked)
     out = conv2d_nchw_ref(x, w, stride=stride, pad=pad)
     return to_nchwc(out, oc_bn)
+
+
+# ---------------------------------------------------------------------------
+# Attention (causal, GQA) — oracle for kernels/flash_attention.py
+# ---------------------------------------------------------------------------
+
+def gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Hq, S, D); k,v: (B, Hkv, S, D). Hq % Hkv == 0.
+    ``window`` > 0 restricts attention to the last ``window`` positions."""
+    b, hq, s, d = q.shape
+    rep = hq // k.shape[1]
+    kf = k.repeat_interleave(rep, dim=1).float()
+    vf = v.repeat_interleave(rep, dim=1).float()
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), kf)
+    logits = logits / torch.sqrt(torch.tensor(d, dtype=torch.float32))
+    idx = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= idx[:, None] >= idx[None, :]
+    if window > 0:
+        mask &= idx[:, None] - idx[None, :] < window
+    logits = torch.where(mask[None, None], logits, -torch.inf)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhst,bhtd->bhsd", p, vf).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk block — oracle for kernels/ssd_chunk.py
+# ---------------------------------------------------------------------------
+
+def ssd_intra_ref(cc: torch.Tensor, bc: torch.Tensor, acum: torch.Tensor,
+                  xd: torch.Tensor) -> torch.Tensor:
+    """The same contraction as ssm.ssd_chunked's y_diag, as one einsum."""
+    scores = torch.einsum("gin,gjn->gij", cc.float(), bc.float())
+    diff = acum[..., :, None] - acum[..., None, :]    # (BC, H, Q, Q)
+    q = acum.shape[-1]
+    mask = torch.ones((q, q), dtype=torch.bool, device=acum.device).tril()
+    ell = torch.where(mask, torch.exp(diff), 0.0)     # (BC, H, Q, Q)
+    return torch.einsum("gij,ghij,ghjp->ghip", scores, ell,
+                        xd.float()).to(xd.dtype)

@@ -1,0 +1,138 @@
+"""The LM kernels on the card: B3 and B4 against their plain versions, the
+wrappers' refusals, and their launches through ``prefill``.
+
+Every test here needs an NVIDIA card and skips without one.  The file
+imports neither JAX nor the reference, so it also runs on a machine that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.engine import compile_lm
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_chunk as sc
+from repro_torch.models.lm import model as TM
+
+pytestmark = pytest.mark.cuda
+
+# kernel vs plain: fp32 sums in another order; bf16 compared in fp32 after
+# the output's rounding to bf16 (the two may differ by one bf16 step, 2^-7
+# relative at most, under the rtol; the atol is twice the largest error
+# chip_smoke.py measured)
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=2e-2, atol=8e-3)}
+# per-position log-decay steps -dt*A: "slow" is Mamba-2's dt*A range, so
+# every column of a 256-token chunk adds well above the tolerance; "none"
+# (acum = 0) weighs all columns alike; "steep" hides columns more than ~40
+# positions back and checks the exponent's range
+DECAY = {"slow": (1e-3, 2e-2), "steep": (0.01, 0.5), "none": None}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(b, hq, hkv, s, d, dtype, device):
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn((b, h, s, d), generator=g).to(device=device,
+                                                      dtype=dtype)
+            for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 12, 2, 300, 128, True, 0), (2, 4, 4, 65, 64, False, 0),
+    (1, 4, 1, 200, 256, True, 64), (2, 4, 2, 17, 16, True, 0),
+    (1, 2, 1, 96, 64, False, 40)])
+def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, s, d, causal,
+                                    window):
+    q, k, v = _qkv(b, hq, hkv, s, d, dtype, card)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_flash_wrapper_rejects_what_the_kernel_cannot_take(card):
+    q, k, v = _qkv(1, 4, 2, 16, 64, torch.float32, card)
+    strided = q.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(strided, k, v)
+    with pytest.raises(TypeError, match="share"):
+        fa.flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        fa.flash_attention(q[:, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.parametrize("bcn,h,q,n,p,decay", [
+    (2, 24, 256, 128, 64, "steep"), (2, 24, 256, 128, 64, "slow"),
+    (1, 24, 256, 128, 64, "none"), (3, 8, 8, 16, 16, "steep"),
+    (1, 3, 100, 20, 40, "slow")])
+def test_ssd_kernel_matches_plain(card, bcn, h, q, n, p, decay):
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(card)
+
+    scale = n ** -0.25
+    steps = DECAY[decay]
+    args = (t(rng.normal(0, scale, size=(bcn, q, n))),
+            t(rng.normal(0, scale, size=(bcn, q, n))),
+            t(np.zeros((bcn, h, q)) if steps is None else
+              -np.cumsum(rng.uniform(*steps, size=(bcn, h, q)), axis=-1)),
+            t(rng.normal(size=(bcn, h, q, p))))
+    before = sc.ssd_intra.launches
+    got = sc.ssd_intra(*args)
+    torch.cuda.synchronize()
+    assert sc.ssd_intra.launches == before + 1
+    torch.testing.assert_close(got, sc.ssd_intra_plain(*args),
+                               **TOL[torch.float32])
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_cannot_take(card):
+    cc = torch.zeros((2, 8, 4), device=card)
+    acum = torch.zeros((2, 3, 8), device=card)
+    xd = torch.zeros((2, 3, 8, 4), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        sc.ssd_intra(cc.double(), cc, acum, xd)
+    with pytest.raises(ValueError, match="shape"):
+        sc.ssd_intra(cc, cc[:, :7], acum, xd)
+    with pytest.raises(ValueError, match="above the kernel"):
+        sc.ssd_intra(cc, cc, acum, torch.zeros((2, 3, 8, 80), device=card))
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "mamba2-130m"])
+def test_prefill_launches_once_per_layer_and_matches_cpu(card, name):
+    cfg = reduced(ARCHS[name])
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    fn = fa.flash_attention if cfg.family == "dense" else sc.ssd_intra
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 21)))
+    before = fn.launches
+    cache, logits = TM.prefill(TM.params_to(params, card), cfg,
+                               toks.to(card), max_len=32)
+    torch.cuda.synchronize()
+    assert fn.launches - before == cfg.n_layers
+    _, want = TM.prefill(params, cfg, toks, max_len=32)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    sess = compile_lm(cfg, max_len=32, params=TM.params_to(params, card))
+    before = fn.launches
+    out = sess.generate(toks[:1, :13].numpy(), 4)    # bucket 8 + catch-up
+    assert fn.launches - before == cfg.n_layers
+    assert out.shape == (1, 4) and 0 <= out.min() and out.max() < cfg.vocab
