@@ -5,11 +5,11 @@
 
 Phases, each a function of a device and a size:
 
-1. build      — compile the three kernels of ``src/repro_torch/csrc``
-                (``conv2d_nchwc.cu`` B1, ``flash_attention.cu`` B3,
-                ``ssd_chunk.cu`` B4) with nvcc for sm_90a, one nvcc each,
-                all started together, and print ptxas's registers, shared
-                memory and spills;
+1. build      — compile the four kernels of ``src/repro_torch/csrc``
+                (``conv2d_nchwc.cu`` B1, ``matmul_blocked.cu`` B2,
+                ``flash_attention.cu`` B3, ``ssd_chunk.cu`` B4) with nvcc
+                for sm_90a, one nvcc each, all started together, and print
+                ptxas's registers, shared memory and spills;
 2. kernels    — B1 against its plain PyTorch version on the card, on every
                 distinct conv of ResNet-50's plan at batch 1 (its planned
                 blocks and epilogues), a DenseNet-style concat-offset store
@@ -18,28 +18,40 @@ Phases, each a function of a device and a size:
                 answers 8 batch-1 requests and one batch-8 request; every
                 predict must launch B1 once per conv_block, and the batch-1
                 output must match a CPU session of the same seed and plan;
-4. lm_kernels — B3 and B4 against their plain versions on the card, at
-                qwen2-1.5b's prefill shapes and mamba2-130m's, plus ragged,
-                windowed, non-causal, MHA and reduced cases, and B4 with
-                slow, steep and no decay;
+4. lm_kernels — B2, B3 and B4 against their plain versions on the card:
+                B2 at arctic-480b's router shapes (prefill and decode, fp32
+                and bf16 operands), every matmul tail of the reference's
+                tests, attention_probs, ragged and padded-operand cases; B3
+                and B4 at qwen2-1.5b's prefill shapes and mamba2-130m's,
+                plus ragged, windowed, non-causal, MHA and reduced cases,
+                and B4 with slow, steep and no decay;
 5. lm_main    — ``compile("qwen2-1.5b", (1, 2048))`` answers four requests
                 (a full bucket, an exact bucket, a bucket plus 188 catch-up
                 steps, decode only) and a batch-4 session one request; B3
                 must launch 28 times per prefill.  The same for
-                ``mamba2-130m`` with B4, 24 times per prefill;
-6. lm_parity  — each model at full width, 2 layers, fp32: a session on the
+                ``mamba2-130m`` with B4, 24 times per prefill, and, last,
+                for arctic-480b at full width and 2 layers, with B3 once per
+                layer per prefill and B2 once per layer per prefill and per
+                decode step;
+6. lm_parity  — each model at full width, fp32 (qwen2 and mamba2 at 2
+                layers, arctic at 1 layer and 8 experts): a session on the
                 card and one on the CPU, from the same weights, agree on
                 the logits of every step and on the greedy tokens under the
-                top-2 margin rule;
+                top-2 margin rule (and, for arctic, the routing margin
+                rule);
 7. times      — per conv: B1, its plain version, cuDNN's conv2d and the
                 roofline bound, with CUDA events; end-to-end predict
                 latency at batch 1 and 8; device time by kernel over
                 batch-1 predicts from a ``torch.profiler`` trace;
 8. lm_times   — B3 per prefill bucket (kernel, plain, SDPA, bound), B4 at
-                mamba2's prefill shapes (kernel, plain, bound); per model
-                prefill ms per bucket, decode ms per token, tokens/s at
-                batch 1 and 4, peak device memory, and the card's idle
-                share over a decode loop from a ``torch.profiler`` trace.
+                mamba2's prefill shapes (kernel, plain, bound), B2 at the
+                router shapes (kernel, plain, bound, and torch's matmul and
+                softmax); per model prefill ms per bucket, decode ms per
+                token, tokens/s at batch 1 and 4, peak device memory, and
+                the card's idle share over a decode loop from a
+                ``torch.profiler`` trace.  The earlier models' sessions are
+                released before arctic-480b's phases, and each phase prints
+                the card's peak allocated memory.
 
 It prints one JSON line per item, the card's ``nvidia-smi`` name and power
 limit, the kernels' summary line, and as its last line
@@ -50,8 +62,10 @@ exits non-zero before printing any result.  Full results also go to
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -67,7 +81,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MODEL, IMAGE, BIG_BATCH = "resnet-50", 224, 8
 KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc.cu"
-KERNEL_NAMES = ("conv2d_nchwc", "flash_attention", "ssd_chunk")
+KERNEL_NAMES = ("conv2d_nchwc", "matmul_blocked", "flash_attention",
+                "ssd_chunk")
 PEAK_FP32 = 67e12          # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
 MEM_BW = 3.35e12           # H100 SXM device-memory bytes/s
@@ -441,6 +456,34 @@ SSD_DECAY = {"slow": (1e-3, 2e-2), "steep": (0.01, 0.5), "none": None}
 # the projections (K up to 8,960) and the head, in another order, compared
 # relative to the largest logit
 LM_LOGIT_TOL = 1e-4
+# B2 kernel vs plain, for a softmax tail: fp32 logits summed in another
+# order, then the same exp and normalisation; the inputs are scaled like
+# arctic-480b's router (weights N(0, 0.02^2)), so the logits are of order 1
+# and the probabilities not one-hot.  Other tails are held against the fp64
+# product instead: a dot product of K fp32 terms lies within
+# K * 2^-24 * (|a| @ |b|) of the exact one in any order (ROADMAP C), times
+# |scale|, plus one rounding of the scale and, for a bf16 output, half a
+# bf16 step (2^-8 relative: 8 significant bits).  That bound is loose at
+# K = 7,168 (~2 against values of ~85), so the same outputs are also held
+# against plain, which takes the same fp32 operands: within PLAIN_REL of
+# the largest unmasked |plain| (fp32 sums in another order differ by
+# ~4e-7 of it at the router's identity tail; operands rounded to TF32
+# would miss by ~4e-4, to bf16 by ~2e-3), plus one bf16 step (2^-7
+# relative) for a bf16 output, whose
+# rounding of two nearly equal fp32 sums may differ; masked entries
+# (NEG_INF) must be equal.
+PROB_TOL = dict(rtol=1e-4, atol=1e-6)
+PLAIN_REL = 1e-5
+U32 = 2.0 ** -24
+MM_SPECS = {
+    "identity": {}, "softmax": dict(softmax=True),
+    "scale_softmax": dict(scale=0.125, softmax=True),
+    "causal_softmax": dict(mask="causal", softmax=True),
+    "attention_tail": dict(scale=0.25, mask="causal", softmax=True),
+    "scale_only": dict(scale=2.0), "causal_only": dict(mask="causal"),
+    "scale_relu": dict(scale=0.5, relu=True)}
+ROUTER_K, ROUTER_N = 7168, 128       # arctic-480b's d_model and experts
+ROUTER_M = (2048, 1, 4)              # tokens: prefill, decode at batch 1, 4
 
 
 def attn_cases() -> list:
@@ -451,6 +494,12 @@ def attn_cases() -> list:
         for dt in (bf, f32):
             cases.append((f"qwen2_s{s}_{str(dt)[6:]}", 1, 12, 2, s, 128,
                           True, 0, dt))
+    # arctic-480b's prefill shapes (56:8 heads), as its served path runs
+    # them: bf16, the three buckets at batch 1 and the batch-4 session
+    cases += [(f"arctic_s{s}_bfloat16", 1, 56, 8, s, 128, True, 0, bf)
+              for s in (512, 1024, 2048)]
+    cases.append(("arctic_b4_s512_bfloat16", 4, 56, 8, 512, 128, True, 0,
+                  bf))
     cases += [("qwen2_b4_s512_bfloat16", 4, 12, 2, 512, 128, True, 0, bf),
               ("qwen2_ragged_s700_bfloat16", 1, 12, 2, 700, 128, True, 0, bf),
               ("window64_d256_s300_float32", 1, 10, 1, 300, 256, True, 64,
@@ -498,14 +547,163 @@ def ssd_inputs(bcn, h, q, n, p, device, decay="slow", seed=0):
     return cc, bc, acum, xd
 
 
+def mm_cases() -> list:
+    """(name, M, K, N, tail, operand dtype): the router at prefill and
+    decode with fp32 and bf16 operands, the identity tail at the prefill
+    router shape, every tail of the reference's tests at their shapes, and
+    two ragged shapes."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(f"router_m{m}_{str(dt)[6:]}", m, ROUTER_K, ROUTER_N,
+              "softmax", dt) for m in ROUTER_M for dt in (f32, bf)]
+    cases.append(("router_identity_m2048_float32", 2048, ROUTER_K, ROUTER_N,
+                  "identity", f32))
+    for tail in MM_SPECS:
+        for m, k, n in ((128, 128, 128), (96, 64, 80), (40, 32, 200)):
+            cases.append((f"{tail}_{m}x{k}x{n}", m, k, n, tail, f32))
+    for m, k, n in ((100, 130, 60), (33, 257, 129)):
+        for tail in ("softmax", "attention_tail", "identity", "scale_relu"):
+            for dt in (f32, bf):
+                cases.append((f"ragged_{tail}_{m}x{k}x{n}_{str(dt)[6:]}",
+                              m, k, n, tail, dt))
+    return cases
+
+
+def mm_inputs(m, k, n, dtype, device, softmax: bool, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(m, k))
+    b = rng.normal(0, 0.02 if softmax else 1.0, size=(k, n))
+    return (torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                      dtype=dtype),
+            torch.from_numpy(b.astype(np.float32)).to(device=device,
+                                                      dtype=dtype))
+
+
+def mm_plain(a, b, spec, n_valid=None, out_dtype=None):
+    """B2's plain version on operands padded as the reference's
+    ``matmul_padded`` pads them, sliced back."""
+    from repro_torch.kernels.matmul_blocked import (MatmulSchedule,
+                                                    matmul_plain,
+                                                    pad_operands)
+
+    m, n = a.shape[0], b.shape[1]
+    ap, bp, s, nv = pad_operands(a, b, MatmulSchedule(), spec)
+    return matmul_plain(ap, bp, schedule=s, epilogue=spec,
+                        n_valid=n_valid or nv, out_dtype=out_dtype)[:m, :n]
+
+
+def mm_fp64(a, b, spec, out_dtype):
+    """A non-softmax tail on the fp64 product, and the error an fp32
+    computation of it may carry (see PROB_TOL's comment)."""
+    from repro_torch.core.epilogue import NEG_INF
+
+    a64, b64 = a.double(), b.double()
+    x = a64 @ b64
+    err = a.shape[1] * U32 * (a64.abs() @ b64.abs())
+    if spec.scale is not None:
+        x = x * spec.scale
+        err = err * abs(spec.scale) + U32 * x.abs()
+    if spec.mask == "causal":
+        rows = torch.arange(x.shape[0], device=x.device)[:, None]
+        cols = torch.arange(x.shape[1], device=x.device)[None, :]
+        # NEG_INF as fp32 stores it: masked entries must match exactly
+        x = torch.where(rows >= cols, x, float(np.float32(NEG_INF)))
+        err = torch.where(rows >= cols, err, 0.0)
+    if spec.relu:
+        x = x.clamp_min(0.0)
+    if out_dtype == torch.bfloat16:
+        err = err + 2.0 ** -8 * x.abs()
+    return x, err
+
+
+def check_b2(name, got, a, b, spec, device, n_valid=None) -> float:
+    """B2's output against its plain version; any tail but a softmax also
+    against the fp64 bound.  Returns the largest error against plain."""
+    want = mm_plain(a, b, spec, n_valid=n_valid, out_dtype=got.dtype)
+    torch.cuda.synchronize(device)
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"B2 {name}: non-finite kernel output")
+    err = float((got.float() - want.float()).abs().max())
+    row = {"phase": "lm_kernel_vs_plain", "kernel": "matmul_blocked",
+           "case": name, "out_dtype": str(got.dtype)[6:], "max_abs_err": err}
+    if spec.softmax:
+        torch.testing.assert_close(got.float(), want.float(), **PROB_TOL)
+        row.update(PROB_TOL)
+    else:
+        x, bound = mm_fp64(a, b, spec, got.dtype)
+        excess = float(((got.double() - x).abs() - bound).max())
+        row.update(fp64_excess=excess, fp64_bound="K*2^-24*(|a|@|b|)")
+        if excess > 0:
+            raise RuntimeError(f"B2 {name}: beyond the fp64 bound by "
+                               f"{excess:.3g}")
+        ref = want.float()
+        live = ref.abs() < 1e29
+        if not torch.equal(got.float()[~live], ref[~live]):
+            raise RuntimeError(f"B2 {name}: masked entries differ")
+        step = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+        ref = ref[live]
+        over = float(((got.float()[live] - ref).abs() - step * ref.abs())
+                     .max() / ref.abs().max()) if ref.numel() else 0.0
+        row.update(plain_rel_err=over, plain_rel_tol=PLAIN_REL)
+        if over > PLAIN_REL:
+            raise RuntimeError(f"B2 {name}: differs from plain by {over:.3g}"
+                               f" of the largest output (tolerance "
+                               f"{PLAIN_REL})")
+    emit(row)
+    return err
+
+
+def phase_lm_b2(device) -> float:
+    """B2 against its plain version on every case of ``mm_cases``, then
+    ``attention_probs`` at S = 512, D = 128, and a padded-operand case
+    with ``n_valid``; returns the largest abs error."""
+    from repro_torch.core.epilogue import EpilogueSpec
+    from repro_torch.kernels.matmul_blocked import (MatmulSchedule,
+                                                    matmul_blocked,
+                                                    pad_operands)
+    from repro_torch.kernels.ops import attention_probs
+
+    worst = 0.0
+    for name, m, k, n, tail, dt in mm_cases():
+        spec = EpilogueSpec(**MM_SPECS[tail])
+        a, b = mm_inputs(m, k, n, dt, device, spec.softmax)
+        # the router reads its probabilities in fp32; other tails store in
+        # the operands' type
+        out_dtype = torch.float32 if spec.softmax else dt
+        got = matmul_blocked(a, b, epilogue=spec, out_dtype=out_dtype)
+        worst = max(worst, check_b2(name, got, a, b, spec, device))
+    for causal in (True, False):
+        q, k = attn_inputs(1, 1, 1, 512, 128, torch.float32, device)[:2]
+        q, k = q[0, 0], k[0, 0]
+        spec = EpilogueSpec(scale=128 ** -0.5,
+                            mask="causal" if causal else "none", softmax=True)
+        got = attention_probs(q, k, causal=causal)
+        worst = max(worst, check_b2(f"attention_probs_s512_d128_"
+                                    f"{'causal' if causal else 'full'}",
+                                    got, q, k.t().contiguous(), spec, device))
+    # operands padded as the reference pads them, with n_valid: equal to
+    # the unpadded result, the padded columns at probability 0
+    spec = EpilogueSpec(scale=0.5, softmax=True)
+    a, b = mm_inputs(70, 200, 50, torch.float32, device, True, seed=1)
+    ap, bp, _, nv = pad_operands(a, b, MatmulSchedule(), spec)
+    got = matmul_blocked(ap, bp, epilogue=spec, n_valid=nv)
+    flat = matmul_blocked(a, b, epilogue=spec)
+    worst = max(worst, check_b2("padded_70x200x50_n_valid", got, ap, bp,
+                                spec, device, n_valid=nv))
+    torch.testing.assert_close(got[:70, :50], flat, **PROB_TOL)
+    if not torch.all(got[:, 50:] == 0):
+        raise RuntimeError("B2: padded columns got probability mass")
+    return worst
+
+
 def phase_lm_kernels(device) -> dict:
-    """B3 and B4 against their plain versions; returns the largest abs
+    """B2, B3 and B4 against their plain versions; returns the largest abs
     error of each."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
 
-    worst = {"flash_attention": 0.0, "ssd_intra": 0.0}
+    worst = {"matmul_blocked": phase_lm_b2(device), "flash_attention": 0.0,
+             "ssd_intra": 0.0}
     for name, b, hq, hkv, s, d, causal, window, dt in attn_cases():
         q, k, v = attn_inputs(b, hq, hkv, s, d, dt, device)
         got = flash_attention(q, k, v, causal=causal, window=window)
@@ -540,10 +738,11 @@ def phase_lm_kernels(device) -> dict:
 def _kernel_fns() -> dict:
     from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul_blocked import matmul_blocked
     from repro_torch.kernels.ssd_chunk import ssd_intra
 
-    return {"conv2d_nchwc": conv2d_nchwc, "flash_attention": flash_attention,
-            "ssd_intra": ssd_intra}
+    return {"conv2d_nchwc": conv2d_nchwc, "matmul_blocked": matmul_blocked,
+            "flash_attention": flash_attention, "ssd_intra": ssd_intra}
 
 
 def reset_counts() -> None:
@@ -555,18 +754,72 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
-def lm_kernel_of(cfg) -> str:
-    return "flash_attention" if cfg.family == "dense" else "ssd_intra"
+@contextlib.contextmanager
+def moe_recording():
+    """Record each MoE layer call of the port while the block runs, in
+    order: its router probabilities (T, E), capacity and aux (lb_loss,
+    dropped_frac).  ``layers.moe_ffn`` and the router's ``dense_softmax``
+    are wrapped, not replaced: every call still runs, and launches, as
+    before."""
+    from repro_torch.models.lm import layers as L
+
+    calls = []
+    real_ffn, real_softmax = L.moe_ffn, L.dense_softmax
+
+    def softmax(x, w, **kw):
+        probs = real_softmax(x, w, **kw)
+        calls.append({"probs": probs})
+        return probs
+
+    def ffn(x, p, cfg):
+        y, aux = real_ffn(x, p, cfg)
+        calls[-1].update(capacity=L.moe_capacity(x.shape[0], cfg), **aux)
+        return y, aux
+
+    L.moe_ffn, L.dense_softmax = ffn, softmax
+    try:
+        yield calls
+    finally:
+        L.moe_ffn, L.dense_softmax = real_ffn, real_softmax
+
+
+def lm_kernels_of(cfg) -> dict:
+    """The kernels a model's requests launch on the card, each with its
+    launches per prefill and per decode step: B3 in every attention
+    prefill, B4 in every Mamba-2 prefill, B2 in every MoE router."""
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"ssd_intra": (n, 0)}
+    out = {"flash_attention": (n, 0)}
+    if cfg.family == "moe":
+        out["matmul_blocked"] = (n, n)
+    return out
 
 
 LM_MODELS = ("qwen2-1.5b", "mamba2-130m")
+ARCTIC = "arctic-480b"          # served at full width, depth cut to 2
+ARCTIC_LAYERS = 2
+# its parity copy: fp32 at full width, 1 layer and 8 of the 128 experts;
+# a bucket of 128 plus 8 catch-up steps
+ARCTIC_PARITY = dict(n_layers=1, n_experts=8, max_len=512, prompt=136,
+                     new=8)
+# (kernel, model, source, TPU kernel, the row of ``phase_lm_kernel_times``
+# at that model's largest prefill)
 LM_KERNEL_ROWS = (
+    ("matmul_blocked", ARCTIC, "src/repro_torch/csrc/matmul_blocked.cu",
+     "src/repro/kernels/matmul_blocked.py:73", 0),
     ("flash_attention", "qwen2-1.5b", "src/repro_torch/csrc/flash_attention.cu",
-     "src/repro/kernels/flash_attention.py:84"),
+     "src/repro/kernels/flash_attention.py:84", 2),
     ("ssd_intra", "mamba2-130m", "src/repro_torch/csrc/ssd_chunk.cu",
-     "src/repro/kernels/ssd_chunk.py:46"))
+     "src/repro/kernels/ssd_chunk.py:46", 2))
 LM_REQUESTS = ((2048, 1), (1024, 64), (700, 64), (100, 32))
 LM_BIG = (4, 1024, 512, 32)     # batch, max_len, prompt, new tokens
+
+
+def arctic_config():
+    from repro_torch.configs import ARCHS
+
+    return dataclasses.replace(ARCHS[ARCTIC], n_layers=ARCTIC_LAYERS)
 
 
 def phase_lm_main(device, model, max_len: int = 2048,
@@ -574,8 +827,10 @@ def phase_lm_main(device, model, max_len: int = 2048,
     """The user's LM path: ``compile(model, (1, max_len))`` answers
     ``requests`` (prompt length, new tokens), then a batch-``big[0]``
     session over the same weights answers one request.  Every count is set
-    to 0 just before and read just after; the model's prefill kernel must
-    launch once per layer per prefill on the card, and no other kernel."""
+    to 0 just before and read just after; on the card each of the model's
+    kernels (``lm_kernels_of``) must launch its count per prefill and per
+    decode step, and no other kernel.  A MoE model reports the dropped
+    share of each prefill, and its decode steps must drop nothing."""
     from repro_torch.engine import compile
     from repro_torch.models.lm.model import prefill
 
@@ -585,7 +840,7 @@ def phase_lm_main(device, model, max_len: int = 2048,
     session = compile(model, (1, max_len), seed=seed, device=device)
     compile_s = time.perf_counter() - t0
     cfg = session.cfg
-    kname = lm_kernel_of(cfg)
+    kernels = lm_kernels_of(cfg)
     bsz, big_len, big_prompt, big_new = big
     big_session = compile(cfg, (bsz, big_len), params=session._params,
                           device=device)
@@ -593,31 +848,53 @@ def phase_lm_main(device, model, max_len: int = 2048,
         + [(big_session, (bsz, big_prompt), big_new)]
     prompts = [rng.integers(0, cfg.vocab, size=shape) for _, shape, _ in work]
 
-    reset_counts()
-    outs, per_request, t_gen = [], [], []
+    outs, per_request, t_gen, traced = [], [], [], []
     fns = _kernel_fns()
-    for (sess, shape, new), toks in zip(work, prompts):
-        before = fns[kname].launches
-        t1 = time.perf_counter()
-        outs.append(sess.generate(toks, new))
-        t_gen.append((time.perf_counter() - t1) * 1e3)
-        per_request.append(fns[kname].launches - before)
-    counts = read_counts()
+    with moe_recording() as calls:
+        reset_counts()
+        for (sess, shape, new), toks in zip(work, prompts):
+            before = {k: fns[k].launches for k in kernels}
+            first = len(calls)
+            t1 = time.perf_counter()
+            outs.append(sess.generate(toks, new))
+            t_gen.append((time.perf_counter() - t1) * 1e3)
+            per_request.append({k: fns[k].launches - before[k]
+                                for k in kernels})
+            traced.append(calls[first:])
+        counts = read_counts()
 
     n_prefills = sum(1 for (sess, shape, _) in work
                      if sess.bucket_for(shape[1]) is not None)
-    want = [cfg.n_layers if on_card and sess.bucket_for(shape[1]) else 0
-            for sess, shape, _ in work]
+    want = []
+    for sess, shape, new in work:
+        bucket = sess.bucket_for(shape[1])
+        steps = shape[1] - (bucket or 0) + new - 1
+        want.append({k: (bool(bucket) * pp + steps * pd) if on_card else 0
+                     for k, (pp, pd) in kernels.items()})
     if per_request != want:
-        raise RuntimeError(f"{model}: {kname} launches per request "
-                           f"{per_request}, expected {want}")
-    others = {k: v for k, v in counts.items() if k != kname and v}
+        raise RuntimeError(f"{model}: launches per request {per_request}, "
+                           f"expected {want}")
+    others = {k: v for k, v in counts.items() if k not in kernels and v}
     if others:
         raise RuntimeError(f"{model}: unexpected kernel launches {others}")
     for (sess, shape, new), y in zip(work, outs):
         if y.shape != (shape[0], new) or y.dtype != np.int32 \
                 or y.min() < 0 or y.max() >= cfg.vocab:
             raise RuntimeError(f"{model}: bad tokens {y.shape} {y.dtype}")
+    moe = []
+    for (sess, shape, _), calls in zip(work, traced):
+        # a request's first n_layers router calls are its prefill's
+        bucket = sess.bucket_for(shape[1])
+        pre = calls[:cfg.n_layers] if bucket else []
+        if pre:
+            moe.append({"bucket": bucket, "tokens": shape[0] * bucket,
+                        "capacity": pre[0]["capacity"],
+                        "dropped_frac": [float(c["dropped_frac"])
+                                         for c in pre]})
+        dropped = [float(c["dropped_frac"]) for c in calls[len(pre):]]
+        if any(dropped):
+            raise RuntimeError(f"{model}: a decode step dropped tokens "
+                               f"({max(dropped)})")
     # the last logits of a bucket prefill are finite and of vocab width
     # (after the counts were read)
     _, logits = prefill(session._params, cfg,
@@ -625,12 +902,17 @@ def phase_lm_main(device, model, max_len: int = 2048,
                         max_len=max_len)
     if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
         raise RuntimeError(f"{model}: bad prefill logits {logits.shape}")
-    out = {"phase": "lm_main", "model": session.model_name, "kernel": kname,
+    out = {"phase": "lm_main", "model": session.model_name,
+           "n_layers": cfg.n_layers, "kernels": sorted(kernels),
            "requests": [[list(shape), new] for _, shape, new in work],
            "buckets": [session.seq_buckets, big_session.seq_buckets],
-           "prefills": n_prefills, "launches": counts[kname],
+           "prefills": n_prefills,
+           "launches": sum(counts[k] for k in kernels),
+           "launches_by_kernel": {k: counts[k] for k in kernels},
            "launches_per_request": per_request, "compile_s": compile_s,
            "generate_ms": t_gen}
+    if moe:
+        out["moe_prefills"] = moe
     emit(out)
     return {"session": session, "big_session": big_session, **out}
 
@@ -651,45 +933,94 @@ def _recording(logits_seen: list, feed=None):
     return pick
 
 
+def routing_near_ties(trace: list, n_layers: int, top_k: int,
+                      tol=PROB_TOL) -> list:
+    """Positions at which some layer's router puts its k-th and (k+1)-th
+    probabilities within the kernel tolerance of each other, from the
+    ``moe_recording`` of one batch-1 generate: its first forward covers
+    positions 0..T-1, each later one the next position.  There the card
+    may pick the other expert, which is a different output and not a
+    kernel fault."""
+    ties, pos0 = set(), 0
+    for f in range(0, len(trace), n_layers):
+        calls = trace[f:f + n_layers]
+        for c in calls:
+            p = torch.sort(c["probs"].float().cpu(), dim=-1,
+                           descending=True).values
+            pk, pk1 = p[:, top_k - 1], p[:, top_k]
+            close = pk - pk1 <= tol["atol"] + tol["rtol"] * pk
+            ties.update(pos0 + int(i) for i in torch.nonzero(close).flatten())
+        pos0 += calls[0]["probs"].shape[0]
+    return sorted(ties)
+
+
 def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
                     prompt: int = 600, new: int = 8, seed: int = 0,
-                    ref_device="cpu", tol: float = LM_LOGIT_TOL) -> dict:
-    """``model`` at full width, ``n_layers`` layers, fp32: a session on
-    ``device`` and one on ``ref_device`` over the same weights (drawn on
-    the CPU, then moved) run a prompt that takes a bucket and a catch-up.
-    Each step's logits are read through ``generate``'s ``pick`` hook.
-    Teacher-forced with the reference's tokens, every step's logits must
-    agree to ``tol`` of the largest logit; ``generate``'s greedy tokens
-    must be equal at every step whose top-2 margin on the reference
-    exceeds that tolerance, up to the first near-tie that changes a
-    token."""
+                    ref_device="cpu", tol: float = LM_LOGIT_TOL,
+                    **overrides) -> dict:
+    """``model`` at full width, ``n_layers`` layers, fp32 (and any other
+    field of its config in ``overrides``): a session on ``device`` and one
+    on ``ref_device`` over the same weights (drawn on the CPU, then moved)
+    run a prompt that takes a bucket and a catch-up.  Each step's logits
+    are read through ``generate``'s ``pick`` hook.  Teacher-forced with the
+    reference's tokens, every step's logits must agree to ``tol`` of the
+    largest logit; ``generate``'s greedy tokens must be equal at every step
+    whose top-2 margin on the reference exceeds that tolerance, up to the
+    first near-tie that changes a token.  For a MoE model the routing
+    margin rule also holds: steps at or after the first position whose
+    router has a near-tie on the reference side (``routing_near_ties``)
+    are reported and left out of both comparisons.  Because that tie may
+    lie inside the prompt, a MoE model's logits are also compared over the
+    whole teacher-forced sequence (``forward`` on both sides, with its own
+    routing trace) at every position before its first near-tie; a tie at
+    position 0 leaves nothing to compare and fails the phase."""
     from repro_torch.configs import ARCHS
     from repro_torch.engine import compile_lm
-    from repro_torch.models.lm.model import init_params, params_to
+    from repro_torch.models.lm.model import forward, init_params, params_to
 
     base = ARCHS[model] if isinstance(model, str) else model
-    cfg = dataclasses.replace(base, n_layers=n_layers, dtype="float32")
+    cfg = dataclasses.replace(base, n_layers=n_layers, dtype="float32",
+                              **overrides)
     params = init_params(cfg, seed=seed, device="cpu")
-    ref = compile_lm(cfg, max_len=max_len, params=params_to(params,
-                                                             ref_device))
-    dut = compile_lm(cfg, max_len=max_len, params=params_to(params, device))
+    ref_p, dut_p = params_to(params, ref_device), params_to(params, device)
+    ref = compile_lm(cfg, max_len=max_len, params=ref_p)
+    dut = compile_lm(cfg, max_len=max_len, params=dut_p)
     toks = np.random.default_rng(seed + 2).integers(0, cfg.vocab,
                                                     size=(1, prompt))
     want_logits, got_logits = [], []
-    want_tokens = ref.generate(toks, new, pick=_recording(want_logits))
+    with moe_recording() as calls:
+        want_tokens = ref.generate(toks, new, pick=_recording(want_logits))
+    moe = cfg.family == "moe"
+    ties = routing_near_ties(calls, cfg.n_layers, cfg.top_k) if moe else []
+    # step i's logits are those of position prompt - 1 + i
+    steps = [i for i in range(new) if not ties or prompt - 1 + i < ties[0]]
     dut.generate(toks, new, pick=_recording(got_logits, feed=want_tokens))
+    pairs = [(want_logits[i], got_logits[i]) for i in steps]
+    if moe:
+        seq = np.concatenate([toks, want_tokens[:, :-1]], axis=1)
+        with moe_recording() as f_calls:
+            want_f = forward(ref_p, cfg, torch.from_numpy(seq).to(ref_device))
+        got_f = forward(dut_p, cfg, torch.from_numpy(seq).to(device))
+        f_ties = routing_near_ties(f_calls, cfg.n_layers, cfg.top_k)
+        cut = f_ties[0] if f_ties else seq.shape[1]
+        if cut == 0:
+            raise RuntimeError(f"{model}: a routing near-tie at position 0 "
+                               "leaves no logits to compare")
+        pairs.append((want_f[:, :cut].float().cpu().numpy(),
+                      got_f[:, :cut].float().cpu().numpy()))
     errs = []
-    for want, got in zip(want_logits, got_logits):
+    for want, got in pairs:
         if not np.isfinite(got).all():
             raise RuntimeError(f"{model}: non-finite logits")
         scale = float(np.abs(want).max())
         errs.append(float(np.abs(got - want).max()) / scale)
-    if max(errs) > tol:
+    if errs and max(errs) > tol:
         raise RuntimeError(f"{model}: logits differ by {max(errs):.3g} of "
                            f"the largest logit (tolerance {tol})")
     got_tokens = dut.generate(toks, new)
     compared = 0
-    for i, want in enumerate(want_logits):
+    for i in steps:
+        want = want_logits[i]
         top2 = np.sort(want[0])[-2:]
         margin = float(top2[1] - top2[0]) / float(np.abs(want).max())
         same = got_tokens[0, i] == want_tokens[0, i]
@@ -701,10 +1032,16 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
         elif not same:
             break
     out = {"phase": "lm_parity", "model": base.name, "n_layers": n_layers,
-           "dtype": "float32", "prompt": prompt, "bucket":
-           ref.bucket_for(prompt), "new_tokens": new,
-           "max_logit_err_rel": max(errs), "logit_tol_rel": tol,
+           "overrides": overrides, "dtype": "float32", "prompt": prompt,
+           "bucket": ref.bucket_for(prompt), "new_tokens": new,
+           "max_logit_err_rel": max(errs, default=None),
+           "logit_tol_rel": tol, "steps_compared": len(steps),
            "tokens_compared": compared}
+    if moe:
+        out.update(routing_near_ties=len(ties),
+                   routing_near_tie_positions=ties[:16],
+                   routing_tol=PROB_TOL, forward_positions_compared=cut,
+                   forward_near_ties=len(f_ties))
     emit(out)
     return out
 
@@ -739,30 +1076,83 @@ def ssd_bound(bcn, h, q, n, p) -> dict:
             "bound_by": "operations" if t_op >= t_mem else "bytes"}
 
 
+def mm_bound(m, k, n, dtype) -> dict:
+    """Least time of one B2 launch: 2MKN FLOP over the peak of the
+    operands' type, or a and b read and the fp32 output written once over
+    the memory rate (the tail adds O(MN) work)."""
+    flop = 2 * m * k * n
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = elt * (m * k + k * n) + 4 * m * n
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    t_op, t_mem = flop / peak * 1e3, nbytes / MEM_BW * 1e3
+    return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
+            "bound_by": "operations" if t_op >= t_mem else "bytes"}
+
+
+def b2_times(device, iters: int = 20) -> list:
+    """B2 per launch at arctic-480b's router shapes (fp32 operands, as the
+    router casts them; softmax tail), and with the identity tail at the
+    prefill shape: kernel, plain version, bound and one library baseline
+    with TF32 off, ``torch.softmax(torch.matmul(a, b), -1)`` (two calls)
+    for the router and ``torch.matmul`` for the identity tail.  b (3.7 MB)
+    stays in L2 across the back-to-back launches."""
+    from repro_torch.core.epilogue import IDENTITY, EpilogueSpec
+    from repro_torch.kernels.matmul_blocked import matmul_blocked
+
+    soft = EpilogueSpec(softmax=True)
+    rows = []
+    for m, spec in [(m, soft) for m in ROUTER_M] + [(2048, IDENTITY)]:
+        a, b = mm_inputs(m, ROUTER_K, ROUTER_N, torch.float32, device,
+                         spec.softmax)
+        if spec.softmax:
+            def lib():
+                return torch.softmax(torch.matmul(a, b), -1)
+            label = "torch.softmax(torch.matmul(a, b), -1), two calls"
+        else:
+            def lib():
+                return torch.matmul(a, b)
+            label = "torch.matmul(a, b)"
+        row = {"phase": "lm_times", "kernel": "matmul_blocked",
+               "shape": [m, ROUTER_K, ROUTER_N], "dtype": "float32",
+               "tail": "softmax" if spec.softmax else "identity",
+               "ms": cuda_ms(lambda: matmul_blocked(a, b, epilogue=spec),
+                             iters),
+               "plain_ms": cuda_ms(lambda: mm_plain(a, b, spec), iters),
+               "library_ms": cuda_ms(lib, iters), "library": label,
+               **mm_bound(m, ROUTER_K, ROUTER_N, torch.float32)}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def phase_lm_kernel_times(device, iters: int = 10) -> dict:
     """B3 at qwen2-1.5b's prefill shapes (bf16, B = 1, the three buckets)
-    and B4 at mamba2-130m's (BC = 2, 4, 8): kernel, plain version, SDPA
-    (B3 only) and bound, each ms with CUDA events."""
+    and arctic-480b's largest one, B4 at mamba2-130m's (BC = 2, 4, 8) and
+    B2 at arctic-480b's router shapes: kernel, plain version, library call
+    (B3: SDPA; B2: torch's matmul and softmax) and bound, each ms with
+    CUDA events."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
 
-    rows = {"flash_attention": [], "ssd_intra": []}
-    for s in (512, 1024, 2048):
-        q, k, v = attn_inputs(1, 12, 2, s, 128, torch.bfloat16, device)
+    rows = {"matmul_blocked": b2_times(device), "flash_attention": [],
+            "ssd_intra": []}
+    for hq, hkv, s in [(12, 2, s) for s in (512, 1024, 2048)] \
+            + [(56, 8, 2048)]:
+        q, k, v = attn_inputs(1, hq, hkv, s, 128, torch.bfloat16, device)
 
         def sdpa():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
 
         row = {"phase": "lm_times", "kernel": "flash_attention",
-               "shape": [1, 12, 2, s, 128], "dtype": "bfloat16",
+               "shape": [1, hq, hkv, s, 128], "dtype": "bfloat16",
                "ms": cuda_ms(lambda: flash_attention(q, k, v), iters),
                "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v),
                                    iters),
                "library_ms": cuda_ms(sdpa, iters),
-               **attn_bound(1, 12, 2, s, 128, torch.bfloat16)}
+               **attn_bound(1, hq, hkv, s, 128, torch.bfloat16)}
         emit(row)
         rows["flash_attention"].append(row)
     for name, bcn, h, q_, n, p, decay in ssd_cases()[:3]:
@@ -885,6 +1275,17 @@ def _leaves(tree: dict):
 
 # ---------------------------------------------------------------------------
 
+def memory_line(after: str, device) -> dict:
+    """The card's peak allocated bytes since the last line, then a reset."""
+    torch.cuda.synchronize(device)
+    out = {"phase": "memory", "after": after,
+           "max_allocated_bytes": torch.cuda.max_memory_allocated(device),
+           "allocated_bytes": torch.cuda.memory_allocated(device)}
+    emit(out)
+    torch.cuda.reset_peak_memory_stats(device)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -908,17 +1309,37 @@ def main() -> int:
     convs = plan_convs(MODEL, 1, IMAGE)
     if sum(c["count"] for c in convs) == 0:
         raise RuntimeError("the plan has no conv_block")
+    memory = []
     worst = phase_kernels(device, convs + extra_cases())
+    memory.append(memory_line("kernels", device))
     main_run = phase_main(device, IMAGE, big_batch=BIG_BATCH, model=MODEL)
+    memory.append(memory_line("main", device))
     lm_worst = phase_lm_kernels(device)
-    lm_runs = {m: phase_lm_main(device, m) for m in LM_MODELS}
+    memory.append(memory_line("lm_kernels", device))
+    lm_runs = {}
+    for m in LM_MODELS:
+        lm_runs[m] = phase_lm_main(device, m)
+        memory.append(memory_line(f"lm_main {m}", device))
     parity = [phase_lm_parity(device, m) for m in LM_MODELS]
+    parity.append(phase_lm_parity(device, ARCTIC, **ARCTIC_PARITY))
+    memory.append(memory_line("lm_parity", device))
     rows = phase_times(device, convs)
     latency = [phase_latency(main_run["session"], device, IMAGE, b, it)
                for b, it in ((1, 20), (BIG_BATCH, 10))]
     profile = phase_profile(main_run["session"], device, IMAGE)
     lm_rows = phase_lm_kernel_times(device)
     lm_e2e = [phase_lm_e2e(lm_runs[m], device) for m in LM_MODELS]
+    memory.append(memory_line("times", device))
+    # release every earlier session before arctic-480b's 55 GB of weights
+    for run in [main_run, *lm_runs.values()]:
+        run.pop("session")
+        run.pop("big_session", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_runs[ARCTIC] = phase_lm_main(device, arctic_config())
+    memory.append(memory_line(f"lm_main {ARCTIC}", device))
+    lm_e2e.append(phase_lm_e2e(lm_runs[ARCTIC], device))
+    memory.append(memory_line(f"lm_e2e {ARCTIC}", device))
 
     def total(key):
         return sum(r[key] * r["count"] for r in rows)
@@ -933,15 +1354,16 @@ def main() -> int:
                 "bound_ms": total("bound_ms"),
                 "bound_by": "operations" if t_op >= t_mem else "bytes",
                 "library_ms": total("library_ms")}]
-    # B3 and B4: per prefill of the largest bucket (2,048 tokens at batch
-    # 1), i.e. one launch per layer at that bucket's shape
-    for name, model, source, replaces in LM_KERNEL_ROWS:
+    # B2, B3 and B4: per prefill of the largest bucket (2,048 tokens at
+    # batch 1), i.e. one launch per layer at that bucket's shape
+    for name, model, source, replaces, row in LM_KERNEL_ROWS:
         run = lm_runs[model]
-        n = run["session"].cfg.n_layers
-        r = lm_rows[name][-1]
+        n = run["n_layers"]
+        r = lm_rows[name][row]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": run["launches"],
+            "replaces": replaces,
+            "launches": run["launches_by_kernel"][name],
             "max_abs_err": lm_worst[name], "ms": n * r["ms"],
             "plain_ms": n * r["plain_ms"], "bound_ms": n * r["bound_ms"],
             "bound_by": r["bound_by"],
@@ -955,7 +1377,7 @@ def main() -> int:
               "latency": latency, "profile": profile,
               "lm_main": lm_main, "lm_parity": parity,
               "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e,
-              "kernels": kernels}
+              "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

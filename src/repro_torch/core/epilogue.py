@@ -25,10 +25,16 @@ Epilogue application order is fixed:
     acc = pool(acc)                    # spatial reduction on fp32 values
     out[.., off:off+C, ..] = acc       # channel-offset store (concat fusion)
 
-``pool2d``, ``PoolSpec`` and ``EpilogueSpec`` are the JAX reference's
-(``repro/core/epilogue.py``) on torch tensors.  The matmul-tail stages of
-``EpilogueSpec`` are kept so the spec validates as the reference's does;
-``apply_matmul_epilogue`` waits for the blocked-matmul kernel (ROADMAP B2).
+The LM side adds the matmul-tail stages, applied to the fp32 accumulator
+of a blocked matmul (``kernels/matmul_blocked.py``, B2), in this order:
+
+    acc = acc * scale                  # e.g. 1/sqrt(head_dim)
+    acc = mask(acc)                    # "causal": NEG_INF above the diagonal
+    acc = softmax(acc, axis=-1)        # row softmax over the full N extent
+    acc = relu(acc)
+
+``pool2d``, ``PoolSpec``, ``EpilogueSpec`` and ``apply_matmul_epilogue``
+are the JAX reference's (``repro/core/epilogue.py``) on torch tensors.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+NEG_INF = -1e30   # matches kernels.flash_attention.NEG_INF
 
 
 def _pool_out_hw(h: int, w: int, k: int, stride: int, pad: int,
@@ -168,3 +176,37 @@ class EpilogueSpec:
 
 
 IDENTITY = EpilogueSpec()
+
+
+def apply_matmul_epilogue(acc: torch.Tensor, spec: EpilogueSpec, *,
+                          row0: int = 0, col0: int = 0,
+                          n_valid: Optional[int] = None) -> torch.Tensor:
+    """Apply a matmul-tail epilogue to an fp32 accumulator block.
+
+    The one body of the port's plain path: ``matmul_plain`` runs it on each
+    accumulator block, as the reference's Pallas kernel does at its last
+    k-step, and the CUDA kernel of ``csrc/matmul_blocked.cu`` computes the
+    same stages in the same order.  ``row0``/``col0`` locate the block in
+    the logical (M, N) output (the causal mask needs absolute
+    coordinates).  ``n_valid`` masks padded columns ``>= n_valid`` to
+    NEG_INF before the softmax, so the exp-sum of a padded row matches the
+    unpadded one; it is ignored without softmax (padded columns are sliced
+    away anyway)."""
+    bm, bn = acc.shape[-2], acc.shape[-1]
+    if spec.scale is not None:
+        acc = acc * spec.scale
+    mask_cols = spec.softmax and n_valid is not None and n_valid < bn
+    if spec.mask == "causal" or mask_cols:
+        cols = col0 + torch.arange(bn, device=acc.device)
+    if spec.mask == "causal":
+        rows = row0 + torch.arange(bm, device=acc.device)
+        acc = torch.where(rows[:, None] >= cols[None, :], acc, NEG_INF)
+    if spec.softmax:
+        if mask_cols:
+            acc = torch.where(cols < n_valid, acc, NEG_INF)
+        m = acc.amax(dim=-1, keepdim=True)
+        p = torch.exp(acc - m)
+        acc = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    if spec.relu:
+        acc = torch.clamp_min(acc, 0.0)
+    return acc

@@ -12,9 +12,10 @@ the tokens the returned array holds.
 
 PyTorch runs eagerly, so there are no per-bucket programs to compile:
 ``prewarm`` builds the kernels and runs one prefill per bucket and one
-decode step.  On a CUDA device every prefill attention (dense) or SSD
-intra-chunk block (ssm) launches the hand-written kernel B3 or B4.  Saving
-and loading artifacts waits for ROADMAP A6.
+decode step.  On a CUDA device every prefill attention (dense, moe) or
+SSD intra-chunk block (ssm) launches the hand-written kernel B3 or B4, and
+every MoE router (moe, at prefill and at each decode step) the blocked
+matmul B2.  Saving and loading artifacts waits for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -166,7 +167,7 @@ def compile_lm(model: Union[LMConfig, str], *,
 
     model        an ``LMConfig`` (e.g. ``reduced(ARCHS["qwen2-1.5b"])``)
                  or an assigned-architecture name; the port runs the
-                 ``dense`` and ``ssm`` families
+                 ``dense``, ``moe`` and ``ssm`` families
     seq_buckets  explicit prefill bucket lengths; ``"auto"`` solves them
                  from ``prompt_hist`` (a ``{len: count}`` mapping or
                  ``SizeHistogram``) via the reflected exact DP; default

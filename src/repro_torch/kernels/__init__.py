@@ -2,12 +2,20 @@
 
 conv2d_nchwc    — the paper's CONV template (Algorithm 1) in NCHW[x]c with
                   the fused conv_block epilogue (B1, ``csrc/conv2d_nchwc.cu``);
+matmul_blocked  — ``(M, K) @ (K, N)`` with the fused scale, causal-mask,
+                  row-softmax and ReLU tail, the MoE router's (B2,
+                  ``csrc/matmul_blocked.cu``);
 flash_attention — forward attention with an online softmax, the LM
                   prefill's (B3, ``csrc/flash_attention.cu``);
 ssd_chunk       — the Mamba-2 SSD intra-chunk block (B4,
                   ``csrc/ssd_chunk.cu``).
 
 Each CUDA kernel sits beside its plain PyTorch version; build.py compiles
-and loads them; ops.py carries the engine-facing conv entries, ref.py the
+and loads them; ops.py carries the engine-facing conv entries and the LM's
+fused matmul tails (``dense_softmax``, ``attention_probs``), ref.py the
 plain oracles.
 """
+from repro_torch.kernels.matmul_blocked import matmul_blocked
+from repro_torch.kernels.ops import attention_probs, dense_softmax
+
+__all__ = ["attention_probs", "dense_softmax", "matmul_blocked"]

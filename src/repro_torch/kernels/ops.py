@@ -1,11 +1,18 @@
-"""Engine-facing conv entries on blocked tensors.
+"""Engine-facing entries: the convs on blocked tensors and the LM's fused
+matmul tails.
 
-Both consume the NCHW[x]c / KCRS[x]c[y]k tensors the planner produces and
-go through the one conv kernel (``kernels/conv2d_nchwc.py``): the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor.  Like the
-reference's Pallas path, the port has one loop nest and ignores the
+The conv entries consume the NCHW[x]c / KCRS[x]c[y]k tensors the planner
+produces and go through the one conv kernel (``kernels/conv2d_nchwc.py``):
+the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.  Like
+the reference's Pallas path, the port has one loop nest and ignores the
 schedule's ``variant``; the reference's four XLA lowerings and its int8
 forms wait for ROADMAP A3.
+
+``dense_softmax`` and ``attention_probs`` are the reference's LM-side
+instantiations of the blocked matmul (``kernels/matmul_blocked.py``, B2):
+the row softmax, and the attention tail before it, run on the fp32 sums
+inside the kernel, so the logits never reach device memory as a separate
+pass's input.
 """
 from __future__ import annotations
 
@@ -18,9 +25,11 @@ from repro_torch.core.epilogue import IDENTITY, EpilogueSpec
 from repro_torch.core.layout import from_nchwc, kernel_to_kcrs_ck, to_nchwc
 from repro_torch.core.schedule import ConvSchedule
 from repro_torch.kernels.conv2d_nchwc import apply_epilogue_fp32, conv2d_nchwc
+from repro_torch.kernels.matmul_blocked import MatmulSchedule, matmul_padded
 
-__all__ = ["apply_epilogue_fp32", "conv2d", "conv2d_block_blocked",
-           "conv2d_blocked", "pad_blocked"]
+__all__ = ["apply_epilogue_fp32", "attention_probs", "conv2d",
+           "conv2d_block_blocked", "conv2d_blocked", "dense_softmax",
+           "pad_blocked"]
 
 
 def _pad_hw(pad) -> tuple:
@@ -66,3 +75,27 @@ def conv2d(x_nchw: torch.Tensor, w_kcrs: torch.Tensor, *, stride: int = 1,
     xb = to_nchwc(x_nchw, schedule.ic_bn)
     wb = kernel_to_kcrs_ck(w_kcrs, schedule.ic_bn, schedule.oc_bn)
     return from_nchwc(conv2d_blocked(xb, wb, stride=stride, pad=pad))
+
+
+def dense_softmax(x: torch.Tensor, w: torch.Tensor, *,
+                  schedule: Optional[MatmulSchedule] = None) -> torch.Tensor:
+    """``softmax(x @ w, axis=-1)`` with the row softmax fused into the
+    matmul: the MoE router's instantiation (and the LM head's).  Any
+    (M, K, N), through ``matmul_padded``."""
+    return matmul_padded(x, w, schedule=schedule or MatmulSchedule(),
+                         epilogue=EpilogueSpec(softmax=True))
+
+
+def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                    scale: Optional[float] = None,
+                    schedule: Optional[MatmulSchedule] = None
+                    ) -> torch.Tensor:
+    """One head's attention probabilities ``softmax(mask(q @ k.T *
+    scale))`` with the whole tail fused into the matmul.  ``q`` and ``k``
+    are (S, D); ``scale`` defaults to ``1/sqrt(D)``."""
+    d = q.shape[1]
+    spec = EpilogueSpec(scale=scale if scale is not None else d ** -0.5,
+                        mask="causal" if causal else "none", softmax=True)
+    return matmul_padded(q, k.t().contiguous(),
+                         schedule=schedule or MatmulSchedule(),
+                         epilogue=spec)

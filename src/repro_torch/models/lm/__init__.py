@@ -1,4 +1,4 @@
-"""LM stack: the ``dense`` and ``ssm`` families of the reference's
+"""LM stack: the ``dense``, ``moe`` and ``ssm`` families of the reference's
 ``repro/models/lm`` (the others wait for ROADMAP A8)."""
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.model import (decode_step, forward, init_cache,

@@ -1,13 +1,20 @@
-"""Transformer building blocks of the dense family: norms, RoPE, attention,
-MLP — the port of the reference's ``repro/models/lm/layers.py``.
+"""Transformer building blocks: norms, RoPE, attention, MLP, MoE — the
+port of the reference's ``repro/models/lm/layers.py``.
 
 Prefill attention is ``flash_attention`` (the signature of the reference's
 ``flash_attention_xla``): on a CUDA tensor it launches the hand-written
 kernel B3, on a CPU tensor its plain version, which is the reference's
 online-softmax loop.  Decode attention stays plain torch, as the reference
-has no kernel for it.  The reference's MoE and cross-attention wait for
-their families (ROADMAP A8); on one card the reference's ``shard_hint``
-calls are the identity and are dropped (ROADMAP A10).
+has no kernel for it.
+
+MoE is the reference's capacity-dropping formulation: the router's
+``softmax(x @ router)`` is ``dense_softmax``, which on a CUDA tensor
+launches the hand-written blocked matmul B2 with the softmax fused into its
+tail; tokens are ranked within their chosen expert by a stable sort,
+scattered into an (E, capacity, d) buffer, run through batched expert
+products and combined with their top-k gates.  Cross-attention waits for
+its family (ROADMAP A8); on one card the reference's ``shard_hint`` calls
+are the identity and are dropped (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -18,10 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.kernels.ops import dense_softmax
 from repro_torch.models.lm.config import LMConfig
 
 __all__ = ["NEG_INF", "apply_norm", "attention", "decode_attention",
-           "flash_attention", "layernorm", "mlp", "rmsnorm", "rope"]
+           "flash_attention", "layernorm", "mlp", "moe_capacity", "moe_ffn",
+           "rmsnorm", "rope"]
 
 
 # ---------------------------------------------------------------------------
@@ -149,3 +158,66 @@ def mlp(x: torch.Tensor, p: Dict, cfg: LMConfig) -> torch.Tensor:
     if cfg.mlp_gated:
         return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
     return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (capacity-dropping, sort-based dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_capacity(n_tokens: int, cfg: LMConfig) -> int:
+    cap = math.ceil(n_tokens * cfg.top_k / cfg.n_experts
+                    * cfg.capacity_factor)
+    # tiny token counts (decode steps) run dropless: the buffer is small
+    # and drops would make serving non-deterministic against prefill
+    floor = n_tokens * cfg.top_k if n_tokens * cfg.top_k <= 64 else 1
+    return max(floor, min(cap, n_tokens * cfg.top_k))
+
+
+def moe_ffn(x: torch.Tensor, p: Dict, cfg: LMConfig
+            ) -> Tuple[torch.Tensor, Dict]:
+    """x: (T, d) token-major.  Returns (out, aux), where aux carries the
+    load-balance loss term (Shazeer-style f.P) and the dropped share of
+    the token-expert assignments."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(t, cfg)
+    dev = x.device
+
+    probs = dense_softmax(x.float(), p["router"].float())      # (T, E), B2
+    gates, eids = torch.topk(probs, k, dim=-1)                 # descending
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+
+    # rank each assignment within its expert, token-major and rank-minor,
+    # as the reference's stable argsort does
+    flat_e = eids.reshape(-1)                                  # (T*K,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+    pos_sorted = torch.arange(t * k, device=dev) - starts[sorted_e]
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    keep = pos < cap
+    safe_pos = torch.where(keep, pos, cap - 1)
+    tok = torch.arange(t * k, device=dev) // k
+
+    buf = torch.zeros((e, cap, d), dtype=x.dtype, device=dev)
+    contrib = torch.where(keep[:, None], x[tok], 0)
+    buf.index_put_((flat_e, safe_pos), contrib, accumulate=True)
+
+    # batched expert products: plain large GEMMs, as in the reference
+    ex = p["experts"]
+    if cfg.mlp_gated:
+        hdn = F.silu(torch.bmm(buf, ex["wg"])) * torch.bmm(buf, ex["wu"])
+    else:
+        hdn = F.gelu(torch.bmm(buf, ex["wu"]), approximate="tanh")
+    out_buf = torch.bmm(hdn, ex["wd"])
+
+    y_tok = out_buf[flat_e, safe_pos] * keep[:, None]         # (T*K, d)
+    y = (y_tok.reshape(t, k, d) * gates[..., None].to(x.dtype)).sum(dim=1)
+
+    # load-balance loss: E * sum_e fraction_routed(e) * mean_prob(e)
+    f = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, flat_e, keep.float()) / (t * k)
+    aux = {"lb_loss": e * (f * probs.mean(dim=0)).sum(),
+           "dropped_frac": 1.0 - keep.float().mean()}
+    return y, aux

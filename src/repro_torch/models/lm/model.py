@@ -1,5 +1,6 @@
-"""LM model: parameter init, forward, prefill, decode — the ``dense`` and
-``ssm`` families, ported from the reference's ``repro/models/lm/model.py``.
+"""LM model: parameter init, forward, prefill, decode — the ``dense``,
+``moe`` and ``ssm`` families, ported from the reference's
+``repro/models/lm/model.py``.
 
 * Parameters keep the reference's tree: nested dicts whose layer leaves
   are stacked on a leading layer axis (``params["layers"]``), so
@@ -12,8 +13,12 @@
   entries into the cache in place and returns the same dict, so a caller
   that keeps a cache across steps owns it (``LMSession.generate`` builds
   its own per call).
-* The other families (moe, hybrid, encdec, vlm) wait for ROADMAP A8; on
-  one card the reference's ``shard_hint`` calls are the identity and are
+* A ``moe`` layer is a dense layer whose MLP is ``layers.moe_ffn``; it
+  shares the dense family's K/V cache, prefill and decode.  ``forward``
+  returns the logits only: the reference's summed MoE aux loss is for
+  training (ROADMAP A10) and is checked at the ``moe_ffn`` level.
+* The other families (hybrid, encdec, vlm) wait for ROADMAP A8; on one
+  card the reference's ``shard_hint`` calls are the identity and are
   dropped (ROADMAP A10).
 """
 from __future__ import annotations
@@ -25,9 +30,13 @@ import torch
 
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import ssm
+from repro_torch.models.lm.config import FAMILIES as ALL_FAMILIES
 from repro_torch.models.lm.config import LMConfig
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
+# the most fp32 values one draw of ``_Init.mat`` makes (64 MiB), below one
+# arctic-480b expert matrix (7168 x 4864)
+DRAW_ELEMS = 1 << 24
 
 
 def _dt(cfg: LMConfig) -> torch.dtype:
@@ -36,9 +45,10 @@ def _dt(cfg: LMConfig) -> torch.dtype:
 
 def check_family(cfg: LMConfig) -> None:
     if cfg.family not in FAMILIES:
+        missing = ", ".join(f for f in ALL_FAMILIES if f not in FAMILIES)
         raise NotImplementedError(
             f"the port runs the {FAMILIES} LM families; {cfg.name!r} is "
-            f"{cfg.family!r}, which waits for ROADMAP A8")
+            f"{cfg.family!r}: the {missing} families wait for ROADMAP A8")
 
 
 # ===========================================================================
@@ -48,7 +58,11 @@ def check_family(cfg: LMConfig) -> None:
 class _Init:
     """Draws from one ``torch.Generator`` seeded by ``seed`` on ``device``.
     The draws differ from ``jax.random``'s; tests carry the reference's
-    parameters across instead."""
+    parameters across instead.  A leaf is allocated once in its own type
+    and filled one matrix (one layer, one expert) at a time, in row chunks
+    of at most ``DRAW_ELEMS`` fp32 values, so that no fp32 copy of a whole
+    stacked leaf exists: arctic-480b's ``experts.wu`` of one layer is
+    8.9 GB in bf16 and would be 17.8 GB in fp32."""
 
     def __init__(self, cfg: LMConfig, seed: int, device) -> None:
         self.cfg = cfg
@@ -57,9 +71,16 @@ class _Init:
 
     def mat(self, shape, scale=None) -> torch.Tensor:
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
-        out = torch.randn(shape, generator=self.gen, dtype=torch.float32,
-                          device=self.device)
-        return (out * scale).to(_dt(self.cfg))
+        rows, cols = shape[-2], shape[-1]
+        out = torch.empty(shape, dtype=_dt(self.cfg), device=self.device)
+        step = max(1, DRAW_ELEMS // cols)
+        for m in out.view(-1, rows, cols):
+            for r0 in range(0, rows, step):
+                part = torch.randn((min(step, rows - r0), cols),
+                                   generator=self.gen, dtype=torch.float32,
+                                   device=self.device)
+                m[r0:r0 + step].copy_(part.mul_(scale))
+        return out
 
     def full(self, shape, value, dtype=None) -> torch.Tensor:
         return torch.full(shape, value, dtype=dtype or _dt(self.cfg),
@@ -95,10 +116,33 @@ def _mlp_p(ini: _Init, n: int, d_ff: int) -> Dict:
     return {"wu": ini.mat((n, d, d_ff)), "wd": ini.mat((n, d_ff, d))}
 
 
+def _moe_p(ini: _Init, n: int) -> Dict:
+    cfg = ini.cfg
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    # the reference draws each layer's (E, d, f) up-projections with its
+    # default scale 1/sqrt(shape[0]), which is 1/sqrt(E), not 1/sqrt(d)
+    p = {"router": ini.mat((n, d, e), scale=0.02)}
+    experts = {"wu": ini.mat((n, e, d, f), scale=1 / math.sqrt(e)),
+               "wd": ini.mat((n, e, f, d), scale=1 / math.sqrt(f))}
+    if cfg.mlp_gated:
+        experts["wg"] = ini.mat((n, e, d, f), scale=1 / math.sqrt(e))
+    p["experts"] = experts
+    if cfg.n_shared_experts:
+        p["shared"] = _mlp_p(ini, n, cfg.moe_d_ff * cfg.n_shared_experts)
+    if cfg.dense_residual:
+        p["dense"] = _mlp_p(ini, n, cfg.d_ff)
+    return p
+
+
 def _dense_layer_p(ini: _Init, n: int) -> Dict:
     d = ini.cfg.d_model
-    return {"ln1": _norm_p(ini, n, d), "attn": _attn_p(ini, n),
-            "ln2": _norm_p(ini, n, d), "mlp": _mlp_p(ini, n, ini.cfg.d_ff)}
+    p = {"ln1": _norm_p(ini, n, d), "attn": _attn_p(ini, n),
+         "ln2": _norm_p(ini, n, d)}
+    if ini.cfg.family == "moe":
+        p["moe"] = _moe_p(ini, n)
+    else:
+        p["mlp"] = _mlp_p(ini, n, ini.cfg.d_ff)
+    return p
 
 
 def _ssm_layer_p(ini: _Init, n_layers: int) -> Dict:
@@ -128,10 +172,10 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> Dict:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = ini.mat((cfg.d_model, cfg.vocab))
-    if cfg.family == "dense":
-        p["layers"] = _dense_layer_p(ini, cfg.n_layers)
-    else:
+    if cfg.family == "ssm":
         p["layers"] = _ssm_layer_p(ini, cfg.n_layers)
+    else:
+        p["layers"] = _dense_layer_p(ini, cfg.n_layers)
     return p
 
 
@@ -155,13 +199,27 @@ def _layers(params: Dict, cfg: LMConfig) -> Iterator[Dict]:
 # Forward passes
 # ===========================================================================
 
+def _ffn(h, lp, cfg: LMConfig):
+    """A dense or moe layer's feed-forward block on (B, S, d)."""
+    if cfg.family != "moe":
+        return L.mlp(h, lp["mlp"], cfg)
+    b, s, d = h.shape
+    flat = h.reshape(b * s, d)
+    y, _ = L.moe_ffn(flat, lp["moe"], cfg)
+    # The reference adds the shared (kimi-k2) and dense residual (arctic)
+    # MLPs only where the layer's own parameters hold "shared" or "dense",
+    # and its tree keeps them under lp["moe"], so neither runs there; the
+    # port matches it (ROADMAP C)
+    return y.reshape(b, s, d)
+
+
 def _dense_layer_fwd(x, lp, cfg: LMConfig, positions):
-    """One dense layer; also returns its rope'd K/V for a cache."""
+    """One dense or moe layer; also returns its rope'd K/V for a cache."""
     h = L.apply_norm(x, lp["ln1"], cfg)
     attn_out, kv = L.attention(h, lp["attn"], cfg, positions=positions)
     x = x + attn_out
     h = L.apply_norm(x, lp["ln2"], cfg)
-    return x + L.mlp(h, lp["mlp"], cfg), kv
+    return x + _ffn(h, lp, cfg), kv
 
 
 def _run_stacked(params, cfg: LMConfig, x, positions, cache=None):
@@ -191,8 +249,8 @@ def _logits(params, cfg: LMConfig, x):
 
 def forward(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B, S) integers on the parameters' device.  Returns logits
-    (B, S, V).  (The reference also returns the MoE aux loss, which is 0
-    for these families.)"""
+    (B, S, V).  (The reference also returns the summed MoE aux loss, a
+    training term.)"""
     check_family(cfg)
     x = params["embed"][tokens]
     positions = torch.arange(x.shape[1], device=x.device)
@@ -206,7 +264,7 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor) -> torch.Tensor:
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device) -> Dict:
     check_family(cfg)
     dt = _dt(cfg)
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         shape = (cfg.n_layers, batch, cfg.n_kv, max_len, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -271,12 +329,12 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, cache: Dict,
     pos = int(pos)
     x = params["embed"][token]
     for i, lp in enumerate(_layers(params, cfg)):
-        if cfg.family == "dense":
+        if cfg.family != "ssm":
             h = L.apply_norm(x, lp["ln1"], cfg)
             x = x + _token_attn_decode(h, lp["attn"], cfg, cache["k"][i],
                                        cache["v"][i], pos, pos + 1)
             h = L.apply_norm(x, lp["ln2"], cfg)
-            x = x + L.mlp(h, lp["mlp"], cfg)
+            x = x + _ffn(h, lp, cfg)
         else:
             normed = L.apply_norm(x, lp["norm"], cfg)
             out, (s_new, c_new) = ssm.mamba2_layer(
