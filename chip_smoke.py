@@ -5,11 +5,13 @@
 
 Phases, each a function of a device and a size:
 
-1. build      — compile the four kernels of ``src/repro_torch/csrc``
+1. build      — compile the five sources of ``src/repro_torch/csrc``
                 (``conv2d_nchwc.cu`` B1, ``matmul_blocked.cu`` B2,
-                ``flash_attention.cu`` B3, ``ssd_chunk.cu`` B4) with nvcc
-                for sm_90a, one nvcc each, all started together, and print
-                ptxas's registers, shared memory and spills;
+                ``flash_attention_sm90.cu`` B3's bf16 route and
+                ``flash_attention.cu`` its fp32 route, ``ssd_chunk.cu`` B4)
+                with nvcc for sm_90a, one nvcc each, all started together,
+                and print ptxas's registers, shared memory and spills (and
+                the sm90 kernel's dynamic shared memory per head dim);
 2. kernels    — B1 against its plain PyTorch version on the card, on every
                 distinct conv of ResNet-50's plan at batch 1 (its planned
                 blocks and epilogues), a DenseNet-style concat-offset store
@@ -22,13 +24,15 @@ Phases, each a function of a device and a size:
                 B2 at arctic-480b's router shapes (prefill and decode, fp32
                 and bf16 operands), every matmul tail of the reference's
                 tests, attention_probs, ragged and padded-operand cases; B3
-                and B4 at qwen2-1.5b's prefill shapes and mamba2-130m's,
-                plus ragged, windowed, non-causal, MHA and reduced cases,
-                and B4 with slow, steep and no decay;
+                (each case naming the route it took) at qwen2-1.5b's,
+                arctic-480b's and kimi-k2's prefill shapes, plus ragged,
+                windowed, non-causal, MHA, head dim 80 and reduced cases;
+                B4 at mamba2-130m's, with slow, steep and no decay;
 5. lm_main    — ``compile("qwen2-1.5b", (1, 2048))`` answers four requests
                 (a full bucket, an exact bucket, a bucket plus 188 catch-up
                 steps, decode only) and a batch-4 session one request; B3
-                must launch 28 times per prefill.  The same for
+                must launch 28 times per prefill, every launch on its sm90
+                route.  The same for
                 ``mamba2-130m`` with B4, 24 times per prefill, and, last,
                 for arctic-480b at full width and 2 layers, with B3 once per
                 layer per prefill and B2 once per layer per prefill and per
@@ -38,12 +42,13 @@ Phases, each a function of a device and a size:
                 card and one on the CPU, from the same weights, agree on
                 the logits of every step and on the greedy tokens under the
                 top-2 margin rule (and, for arctic, the routing margin
-                rule);
+                rule); their fp32 attention must take B3's fma route;
 7. times      — per conv: B1, its plain version, cuDNN's conv2d and the
                 roofline bound, with CUDA events; end-to-end predict
                 latency at batch 1 and 8; device time by kernel over
                 batch-1 predicts from a ``torch.profiler`` trace;
-8. lm_times   — B3 per prefill bucket (kernel, plain, SDPA, bound), B4 at
+8. lm_times   — B3 per prefill bucket and at arctic-480b's and kimi-k2's
+                2,048-token shapes (kernel, plain, SDPA, bound), B4 at
                 mamba2's prefill shapes (kernel, plain, bound), B2 at the
                 router shapes (kernel, plain, bound, and torch's matmul and
                 softmax); per model prefill ms per bucket, decode ms per
@@ -81,8 +86,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MODEL, IMAGE, BIG_BATCH = "resnet-50", 224, 8
 KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc.cu"
-KERNEL_NAMES = ("conv2d_nchwc", "matmul_blocked", "flash_attention",
-                "ssd_chunk")
+KERNEL_NAMES = ("conv2d_nchwc", "matmul_blocked", "flash_attention_sm90",
+                "flash_attention", "ssd_chunk")
 PEAK_FP32 = 67e12          # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
 MEM_BW = 3.35e12           # H100 SXM device-memory bytes/s
@@ -125,6 +130,10 @@ def phase_build() -> list:
         infos = list(pool.map(kbuild.build, KERNEL_NAMES))
     outs = [_build_report(n, i) for n, i in zip(KERNEL_NAMES, infos)]
     for out in outs:
+        if out["source"].endswith("flash_attention_sm90.cu"):
+            from repro_torch.kernels.flash_attention import sm90_smem_bytes
+            out["dynamic_smem_bytes"] = {d: sm90_smem_bytes(d)
+                                         for d in (64, 128, 192, 256)}
         emit(out)
     return outs
 
@@ -438,9 +447,13 @@ def phase_profile(session, device, image: int, iters: int = 5) -> dict:
 # the weighted sum over keys) in another order, on outputs of order 1;
 # bf16 inputs, both outputs rounded to bf16 and compared in fp32: the two
 # roundings may differ by one bf16 step (2^-7 relative at most), which the
-# rtol covers; the atol is twice the largest error measured (3.9e-3), so
-# that a wrong tile in the late rows of S = 2,048, whose outputs average
-# ~700 keys to ~0.04, fails
+# rtol covers; the atol was set at twice the largest error of the FMA
+# kernel on bf16 (3.9e-3), so that a wrong tile in the late rows of
+# S = 2,048, whose outputs average ~700 keys to ~0.04, fails.  The sm90
+# route also rounds the probabilities P to bf16 before P.V (2^-9 relative
+# each); its largest errors (1.56e-2 = 2^-6) are one bf16 step at outputs
+# in [2, 4), the early rows that average few keys, inside the rtol; each
+# case reports the largest share of the tolerance it used (gate_share)
 ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
             torch.bfloat16: dict(rtol=2e-2, atol=8e-3)}
 # B4 kernel vs plain: fp32 sums of 128 + 256 terms in another order; the
@@ -504,10 +517,20 @@ def attn_cases() -> list:
               ("qwen2_ragged_s700_bfloat16", 1, 12, 2, 700, 128, True, 0, bf),
               ("window64_d256_s300_float32", 1, 10, 1, 300, 256, True, 64,
                f32),
+              ("window64_d256_s300_bfloat16", 1, 10, 1, 300, 256, True, 64,
+               bf),
+              # kimi-k2's prefill (64:8 heads, head dim 112) and a head
+              # dim of 80 (stablelm-3b's), which only the sm90 route takes
+              ("kimi_k2_s2048_d112_bfloat16", 1, 64, 8, 2048, 112, True, 0,
+               bf),
+              ("mha_d80_s512_bfloat16", 1, 32, 32, 512, 80, True, 0, bf),
               ("noncausal_s512_float32", 1, 12, 2, 512, 128, False, 0, f32),
               ("mha_d64_s333_float32", 2, 4, 4, 333, 64, True, 0, f32),
               ("reduced_d16_s40_float32", 2, 4, 2, 40, 16, True, 0, f32)]
     return cases
+
+
+B3_ROUTE = {torch.bfloat16: "sm90", torch.float32: "fma"}
 
 
 def attn_inputs(b, hq, hkv, s, d, dtype, device, seed=0):
@@ -695,27 +718,47 @@ def phase_lm_b2(device) -> float:
     return worst
 
 
-def phase_lm_kernels(device) -> dict:
-    """B2, B3 and B4 against their plain versions; returns the largest abs
-    error of each."""
+def phase_lm_b3(device) -> float:
+    """B3 against its plain version on every ``attn_cases`` case, each
+    line naming the route the launch took; returns the largest abs
+    error."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
 
-    worst = {"matmul_blocked": phase_lm_b2(device), "flash_attention": 0.0,
-             "ssd_intra": 0.0}
+    worst = 0.0
     for name, b, hq, hkv, s, d, causal, window, dt in attn_cases():
         q, k, v = attn_inputs(b, hq, hkv, s, d, dt, device)
+        before = dict(flash_attention.launches_by_route)
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize(device)
+        routes = [r for r, n in flash_attention.launches_by_route.items()
+                  if n != before[r]]
         if not torch.isfinite(got).all():
             raise RuntimeError(f"B3 {name}: non-finite kernel output")
-        err = float((got.float() - want.float()).abs().max())
+        diff = (got.float() - want.float()).abs()
+        tol = ATTN_TOL[dt]
+        share = float((diff / (tol["atol"] + tol["rtol"]
+                               * want.float().abs())).max())
+        err = float(diff.max())
         emit({"phase": "lm_kernel_vs_plain", "kernel": "flash_attention",
-              "case": name, "max_abs_err": err, **ATTN_TOL[dt]})
-        torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dt])
-        worst["flash_attention"] = max(worst["flash_attention"], err)
+              "case": name, "route": routes, "max_abs_err": err,
+              "gate_share": share, **tol})
+        if routes != [B3_ROUTE[dt]]:
+            raise RuntimeError(f"B3 {name}: took route {routes}, expected "
+                               f"{B3_ROUTE[dt]}")
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        worst = max(worst, err)
+    return worst
+
+
+def phase_lm_kernels(device) -> dict:
+    """B2, B3 and B4 against their plain versions; returns the largest abs
+    error of each."""
+    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+
+    worst = {"matmul_blocked": phase_lm_b2(device),
+             "flash_attention": phase_lm_b3(device), "ssd_intra": 0.0}
     for name, bcn, h, q, n, p, decay in ssd_cases():
         args = ssd_inputs(bcn, h, q, n, p, device, decay)
         got = ssd_intra(*args)
@@ -748,6 +791,13 @@ def _kernel_fns() -> dict:
 def reset_counts() -> None:
     for fn in _kernel_fns().values():
         fn.launches = 0
+    by_route = _kernel_fns()["flash_attention"].launches_by_route
+    for route in by_route:
+        by_route[route] = 0
+
+
+def b3_routes() -> dict:
+    return dict(_kernel_fns()["flash_attention"].launches_by_route)
 
 
 def read_counts() -> dict:
@@ -808,7 +858,8 @@ ARCTIC_PARITY = dict(n_layers=1, n_experts=8, max_len=512, prompt=136,
 LM_KERNEL_ROWS = (
     ("matmul_blocked", ARCTIC, "src/repro_torch/csrc/matmul_blocked.cu",
      "src/repro/kernels/matmul_blocked.py:73", 0),
-    ("flash_attention", "qwen2-1.5b", "src/repro_torch/csrc/flash_attention.cu",
+    ("flash_attention", "qwen2-1.5b",
+     "src/repro_torch/csrc/flash_attention_sm90.cu",
      "src/repro/kernels/flash_attention.py:84", 2),
     ("ssd_intra", "mamba2-130m", "src/repro_torch/csrc/ssd_chunk.cu",
      "src/repro/kernels/ssd_chunk.py:46", 2))
@@ -862,6 +913,7 @@ def phase_lm_main(device, model, max_len: int = 2048,
                                 for k in kernels})
             traced.append(calls[first:])
         counts = read_counts()
+        routes = b3_routes()
 
     n_prefills = sum(1 for (sess, shape, _) in work
                      if sess.bucket_for(shape[1]) is not None)
@@ -877,6 +929,11 @@ def phase_lm_main(device, model, max_len: int = 2048,
     others = {k: v for k, v in counts.items() if k not in kernels and v}
     if others:
         raise RuntimeError(f"{model}: unexpected kernel launches {others}")
+    # bf16 attention takes B3's tensor-core route, every launch
+    if routes != {"sm90": counts["flash_attention"], "fma": 0}:
+        raise RuntimeError(f"{model}: B3 launches by route {routes}, "
+                           f"expected all {counts['flash_attention']} on "
+                           "sm90")
     for (sess, shape, new), y in zip(work, outs):
         if y.shape != (shape[0], new) or y.dtype != np.int32 \
                 or y.min() < 0 or y.max() >= cfg.vocab:
@@ -909,6 +966,7 @@ def phase_lm_main(device, model, max_len: int = 2048,
            "prefills": n_prefills,
            "launches": sum(counts[k] for k in kernels),
            "launches_by_kernel": {k: counts[k] for k in kernels},
+           "b3_launches_by_route": routes,
            "launches_per_request": per_request, "compile_s": compile_s,
            "generate_ms": t_gen}
     if moe:
@@ -988,6 +1046,7 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
     toks = np.random.default_rng(seed + 2).integers(0, cfg.vocab,
                                                     size=(1, prompt))
     want_logits, got_logits = [], []
+    routes0 = b3_routes()
     with moe_recording() as calls:
         want_tokens = ref.generate(toks, new, pick=_recording(want_logits))
     moe = cfg.family == "moe"
@@ -1018,6 +1077,13 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
         raise RuntimeError(f"{model}: logits differ by {max(errs):.3g} of "
                            f"the largest logit (tolerance {tol})")
     got_tokens = dut.generate(toks, new)
+    # fp32 attention on the card takes B3's FMA route, and only it
+    routes = {r: n - routes0[r] for r, n in b3_routes().items()}
+    on_card = torch.device(device).type == "cuda"
+    if on_card and "flash_attention" in lm_kernels_of(cfg) \
+            and (routes["sm90"] or not routes["fma"]):
+        raise RuntimeError(f"{model}: fp32 B3 launches by route {routes}, "
+                           "expected all on fma")
     compared = 0
     for i in steps:
         want = want_logits[i]
@@ -1036,7 +1102,7 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
            "bucket": ref.bucket_for(prompt), "new_tokens": new,
            "max_logit_err_rel": max(errs, default=None),
            "logit_tol_rel": tol, "steps_compared": len(steps),
-           "tokens_compared": compared}
+           "tokens_compared": compared, "b3_launches_by_route": routes}
     if moe:
         out.update(routing_near_ties=len(ties),
                    routing_near_tie_positions=ties[:16],
@@ -1126,11 +1192,12 @@ def b2_times(device, iters: int = 20) -> list:
 
 
 def phase_lm_kernel_times(device, iters: int = 10) -> dict:
-    """B3 at qwen2-1.5b's prefill shapes (bf16, B = 1, the three buckets)
-    and arctic-480b's largest one, B4 at mamba2-130m's (BC = 2, 4, 8) and
-    B2 at arctic-480b's router shapes: kernel, plain version, library call
-    (B3: SDPA; B2: torch's matmul and softmax) and bound, each ms with
-    CUDA events."""
+    """B3 at qwen2-1.5b's prefill shapes (bf16, B = 1, the three buckets),
+    arctic-480b's largest one and kimi-k2's (head dim 112), B4 at
+    mamba2-130m's (BC = 2, 4, 8) and B2 at arctic-480b's router shapes:
+    kernel, plain version, library call (B3: SDPA; B2: torch's matmul and
+    softmax) and bound, each ms with CUDA events; B3's rows also carry the
+    card's time per call for the kernel and SDPA from a profiler trace."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -1138,21 +1205,27 @@ def phase_lm_kernel_times(device, iters: int = 10) -> dict:
 
     rows = {"matmul_blocked": b2_times(device), "flash_attention": [],
             "ssd_intra": []}
-    for hq, hkv, s in [(12, 2, s) for s in (512, 1024, 2048)] \
-            + [(56, 8, 2048)]:
-        q, k, v = attn_inputs(1, hq, hkv, s, 128, torch.bfloat16, device)
+    for hq, hkv, s, d in [(12, 2, s, 128) for s in (512, 1024, 2048)] \
+            + [(56, 8, 2048, 128), (64, 8, 2048, 112)]:
+        q, k, v = attn_inputs(1, hq, hkv, s, d, torch.bfloat16, device)
 
         def sdpa():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
 
         row = {"phase": "lm_times", "kernel": "flash_attention",
-               "shape": [1, hq, hkv, s, 128], "dtype": "bfloat16",
+               "shape": [1, hq, hkv, s, d], "dtype": "bfloat16",
                "ms": cuda_ms(lambda: flash_attention(q, k, v), iters),
                "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v),
                                    iters),
                "library_ms": cuda_ms(sdpa, iters),
-               **attn_bound(1, hq, hkv, s, 128, torch.bfloat16)}
+               # the card's own time per call, from a profiler trace: at
+               # the short buckets the events above time the host's
+               # enqueue of back-to-back calls, not the kernel
+               "device_ms": _device_busy(lambda: flash_attention(q, k, v),
+                                         iters)["device_ms"],
+               "library_device_ms": _device_busy(sdpa, iters)["device_ms"],
+               **attn_bound(1, hq, hkv, s, d, torch.bfloat16)}
         emit(row)
         rows["flash_attention"].append(row)
     for name, bcn, h, q_, n, p, decay in ssd_cases()[:3]:
@@ -1369,6 +1442,9 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None if r["library_ms"] is None
             else n * r["library_ms"]})
+        if name == "flash_attention":
+            # the main path's B3 is the bf16 route; fp32 takes the FMA one
+            kernels[-1]["variant"] = "sm90: wgmma + TMA, bf16"
     lm_main = [{k: v for k, v in r.items()
                 if k not in ("session", "big_session")}
                for r in lm_runs.values()]

@@ -5,8 +5,9 @@
 //   repro/kernels/flash_attention.py::flash_attention_pallas (body
 //   _attn_kernel), and computes what repro/models/lm/layers.py::
 //   flash_attention_xla computes, on the same tensors:
-//   q (B, HQ, S, D), k and v (B, HKV, S, D), contiguous, fp32 or bf16;
-//   o (B, HQ, S, D) in q's type.
+//   q (B, HQ, S, D), k and v (B, HKV, S, D), contiguous fp32; o (B, HQ, S,
+//   D) fp32.  This is B3's fp32 route; bf16 takes the tensor-core kernel
+//   of flash_attention_sm90.cu.
 // GQA: query head h reads kv head h / (HQ / HKV); K and V are never
 // repeated.  Scale 1/sqrt(D), causal and local-window band masks, masked
 // scores set to NEG_INF = -1e30 (never -inf), denominator clamped at 1e-30,
@@ -32,11 +33,9 @@
 // operations-bound at 989 TFLOP/s in bf16.  This first kernel runs on the
 // fp32 FMA units (67 TFLOP/s) and feeds them from shared memory with one
 // 16-byte load per four FMAs, so the rate of shared-memory loads bounds
-// it well below even the fp32 peak.  A later kernel moves the two
-// products onto wgmma (bf16 in, fp32 accumulate) fed by TMA.
+// it well below even the fp32 peak.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
 namespace {
@@ -45,13 +44,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr int BK = 32;           // kv rows per shared-memory tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D> struct Shape {
   static constexpr int TPR = D >= 32 ? D / 32 : 1;  // threads per query row
@@ -212,16 +205,11 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// q, k, v, o: contiguous fp32.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
-                                      int b, int hq, int hkv, int s, int d,
-                                      int causal, int window, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, o, b, hq, hkv, s, d, causal, window, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, b, hq, hkv, s, d, causal,
-                                     window, st);
-  return (int)cudaErrorInvalidValue;
+                                      const void* v, void* o, int b, int hq,
+                                      int hkv, int s, int d, int causal,
+                                      int window, void* stream) {
+  return dispatch_d<float>(q, k, v, o, b, hq, hkv, s, d, causal, window,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,9 @@ matmul_blocked  — ``(M, K) @ (K, N)`` with the fused scale, causal-mask,
                   row-softmax and ReLU tail, the MoE router's (B2,
                   ``csrc/matmul_blocked.cu``);
 flash_attention — forward attention with an online softmax, the LM
-                  prefill's (B3, ``csrc/flash_attention.cu``);
+                  prefill's (B3: bf16 on the tensor cores,
+                  ``csrc/flash_attention_sm90.cu``; fp32 on the FMA units,
+                  ``csrc/flash_attention.cu``);
 ssd_chunk       — the Mamba-2 SSD intra-chunk block (B4,
                   ``csrc/ssd_chunk.cu``).
 

@@ -1,17 +1,26 @@
-"""Forward attention with an online softmax (B3): the hand-written CUDA
-kernel, its wrapper, and its plain PyTorch version.
+"""Forward attention with an online softmax (B3): two hand-written CUDA
+kernels, their wrapper, and the plain PyTorch version.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX reference's Pallas
-TPU kernel ``repro/kernels/flash_attention.py::flash_attention_pallas`` and
-computes what the reference's ``models/lm/layers.py::flash_attention_xla``
+The kernels replace the JAX reference's Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention_pallas`` and compute
+what the reference's ``models/lm/layers.py::flash_attention_xla``
 computes: q ``(B, Hq, S, D)``, k and v ``(B, Hkv, S, D)``, GQA through the
 kv-head index ``h // (Hq / Hkv)``, scale ``1/sqrt(D)``, causal and
 local-window masks, NEG_INF = -1e30, the denominator clamped at 1e-30,
-fp32 inside and the output in q's type.  It takes any S.  The source's
-header says what bounds it on the H100 and what its design does about it.
+fp32 inside and the output in q's type.  They take any S.  The route is
+chosen by dtype before any launch (``_route``):
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``flash_attention.launches`` counts the kernel's launches.
+* ``sm90`` (bf16, the serving path): ``csrc/flash_attention_sm90.cu``,
+  wgmma on the tensor cores fed by TMA, any D that is a multiple of 16
+  from 16 to 256;
+* ``fma`` (fp32): ``csrc/flash_attention.cu`` on the fp32 FMA units,
+  D in (16, 64, 128, 256).
+
+Each source's header says what bounds it on the H100 and what its design
+does about it.  A CPU tensor takes the plain version; a CUDA tensor
+launches its route's kernel or raises.  ``flash_attention.launches``
+counts every launch, ``flash_attention.launches_by_route`` those of each
+route.
 """
 from __future__ import annotations
 
@@ -24,8 +33,22 @@ import torch.nn.functional as F
 from repro_torch.kernels import build as _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = {"sm90": tuple(range(16, 257, 16)), "fma": (16, 64, 128, 256)}
+_ROUTES = {torch.bfloat16: "sm90", torch.float32: "fma"}
+
+
+def _route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes a ``dtype`` q, k, v of head dim ``d``:
+    ``"sm90"`` or ``"fma"``.  Raises TypeError for a dtype that no route
+    takes and ValueError for a head dim that its route cannot take."""
+    route = _ROUTES.get(dtype)
+    if route is None:
+        raise TypeError(f"q, k, v must share one of {list(_ROUTES)}; got "
+                        f"{dtype}")
+    if d not in HEAD_DIMS[route]:
+        raise ValueError(f"head dim {d} not in the {route} route's "
+                         f"{HEAD_DIMS[route]}")
+    return route
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,10 +108,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :, :s]
 
 
-def _launch_fn():
-    return _build.entry("flash_attention", "flash_attention_launch",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                        + [ctypes.c_void_p])
+# the route's source and C entry; both take (q, k, v, o, b, hq, hkv, s, d,
+# causal, window, stream)
+_SOURCES = {"sm90": ("flash_attention_sm90", "flash_attention_sm90_launch"),
+            "fma": ("flash_attention", "flash_attention_launch")}
+
+
+def _launch_fn(route: str):
+    return _build.entry(*_SOURCES[route], [ctypes.c_void_p] * 4
+                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def sm90_smem_bytes(d: int) -> int:
+    """The dynamic shared memory that the sm90 kernel's block asks for at
+    head dim ``d`` (builds the kernel on first use)."""
+    fn = _build.entry("flash_attention_sm90", "flash_attention_sm90_smem",
+                      [ctypes.c_int])
+    return int(fn(d))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -115,16 +151,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"({b}, Hkv, {s}, {d})")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share one of {list(_DTYPES)}; got "
+    if q.dtype not in _ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of {list(_ROUTES)}; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    route = _route(q.dtype, d)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     out = torch.empty_like(q)
@@ -132,13 +169,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, s,
-                           d, int(causal), int(window), stream)
+        err = _launch_fn(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), b, hq, hkv, s, d, int(causal),
+                                int(window), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError_t {err}")
+        raise RuntimeError(f"flash_attention ({route}) launch failed: "
+                           f"error {err} (a cudaError_t; 10000 + a CUresult "
+                           "of the tensor-map encoder; 20000: no encoder)")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"sm90": 0, "fma": 0}

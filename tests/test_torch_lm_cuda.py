@@ -1,5 +1,5 @@
-"""The LM kernels on the card: B3 and B4 against their plain versions, the
-wrappers' refusals, and their launches through ``prefill``.
+"""The LM kernels on the card: B3 (both routes) and B4 against their plain
+versions, the wrappers' refusals, and their launches through ``prefill``.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference, so it also runs on a machine that
@@ -22,7 +22,8 @@ pytestmark = pytest.mark.cuda
 # kernel vs plain: fp32 sums in another order; bf16 compared in fp32 after
 # the output's rounding to bf16 (the two may differ by one bf16 step, 2^-7
 # relative at most, under the rtol; the atol is twice the largest error
-# chip_smoke.py measured)
+# chip_smoke.py measured for the FMA kernel on bf16; the sm90 route's P in
+# bf16 stays inside both, chip_smoke.py's ATTN_TOL note)
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=8e-3)}
 # per-position log-decay steps -dt*A: "slow" is Mamba-2's dt*A range, so
@@ -47,18 +48,33 @@ def _qkv(b, hq, hkv, s, d, dtype, device):
             for h in (hq, hkv, hkv)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
-    (1, 12, 2, 300, 128, True, 0), (2, 4, 4, 65, 64, False, 0),
-    (1, 4, 1, 200, 256, True, 64), (2, 4, 2, 17, 16, True, 0),
-    (1, 2, 1, 96, 64, False, 40)])
+# (B, Hq, Hkv, S, D, causal, window): each in fp32 (the FMA route) and
+# bf16 (the sm90 route), then bf16 only, where D is not one of the FMA
+# kernel's: kimi-k2's 112 and stablelm-3b's 80, ragged S (700; 129, one row
+# past a q tile), D = 256 with a window, batch 4
+BOTH = [(1, 12, 2, 300, 128, True, 0), (2, 4, 4, 65, 64, False, 0),
+        (1, 4, 1, 200, 256, True, 64), (2, 4, 2, 17, 16, True, 0),
+        (1, 2, 1, 96, 64, False, 40)]
+BF16_ONLY = [(1, 8, 1, 300, 112, True, 0), (1, 4, 2, 333, 80, True, 0),
+             (1, 12, 2, 700, 128, True, 0), (1, 4, 1, 129, 128, True, 0),
+             (1, 10, 1, 300, 256, True, 64), (4, 12, 2, 256, 128, True, 0),
+             (2, 4, 2, 150, 80, False, 32)]
+ROUTE = {torch.float32: "fma", torch.bfloat16: "sm90"}
+
+
+@pytest.mark.parametrize("dtype,b,hq,hkv,s,d,causal,window", [
+    *[(dt, *c) for c in BOTH for dt in (torch.float32, torch.bfloat16)],
+    *[(torch.bfloat16, *c) for c in BF16_ONLY]])
 def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, s, d, causal,
                                     window):
     q, k, v = _qkv(b, hq, hkv, s, d, dtype, card)
     before = fa.flash_attention.launches
+    by_route = dict(fa.flash_attention.launches_by_route)
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    by_route[ROUTE[dtype]] += 1
+    assert fa.flash_attention.launches_by_route == by_route
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
@@ -74,6 +90,15 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take(card):
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                            v[..., :48].contiguous())
+    q16, k16, v16 = (t[..., :40].bfloat16().contiguous() for t in (q, k, v))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q16, k16, v16)
+    # contiguous but 2 bytes past an aligned start: TMA needs 16
+    kb, vb = k.bfloat16(), v.bfloat16()
+    shifted = torch.empty(q.numel() + 1, dtype=torch.bfloat16,
+                          device=card)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention(shifted, kb, vb)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         fa.flash_attention(q[:, :3].contiguous(), k, v)
     with pytest.raises(ValueError, match="is on"):

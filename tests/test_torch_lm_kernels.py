@@ -4,9 +4,11 @@
     tensor takes) against the reference's ``flash_attention_xla``,
     ``gqa_attention_ref`` and ``flash_attention_pallas`` in interpret mode,
     over the reference's own cases (``tests/test_kernels_matmul_attention``)
-    plus ragged S.  Tolerance rtol = atol = 1e-5 against the XLA loop (the
-    same chunked sums in fp32, in another library) and 1e-4 against the
-    dense oracle and the Pallas kernel, as the reference holds them.
+    plus ragged S, and the head dims only its sm90 route takes (80, 112),
+    in fp32 and bf16; and the rule that picks the route (``_route``).
+    Tolerance rtol = atol = 1e-5 against the XLA loop (the same chunked
+    sums in fp32, in another library) and 1e-4 against the dense oracle
+    and the Pallas kernel, as the reference holds them; 1e-2 for bf16.
 (b) B4's plain version against ``ssd_intra_pallas`` in interpret mode and
     ``ssd_intra_ref``, and the port's ``ssd_chunked`` (which runs B4's
     plain version on the CPU) against the reference's, ragged T included.
@@ -107,6 +109,84 @@ def test_port_gqa_oracle_matches_reference(causal, window, rng):
                  causal=causal, window=window)
     got = gqa_attention_ref(*_t(q, k, v), causal=causal, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **XLA_TOL)
+
+
+# bf16 inputs on both sides, fp32 inside, one bf16 rounding of an O(1)
+# output each (as test_plain_keeps_bf16)
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def _as(dtype, arrays):
+    """The same numpy inputs for both packages: rounded to ``dtype`` once
+    (in torch), then handed to torch and, as exact fp32, to JAX."""
+    ts = [torch.from_numpy(a).to(dtype) for a in arrays]
+    js = [jnp.asarray(t.float().numpy()) for t in ts]
+    if dtype == torch.bfloat16:
+        js = [j.astype(jnp.bfloat16) for j in js]
+    return ts, js
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32),
+        **(BF16_TOL if dtype == torch.bfloat16 else XLA_TOL))
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    *[(torch.bfloat16, d, "sm90") for d in (16, 80, 112, 128, 256)],
+    *[(torch.float32, d, "fma") for d in (16, 64, 128, 256)]])
+def test_route_takes(dtype, d, want):
+    """bf16 goes to the tensor-core kernel at any D that is a multiple of
+    16 up to 256 (kimi-k2's 112, stablelm-3b's 80); fp32 to the FMA
+    kernel at its four head dims."""
+    assert fa._route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 8), (torch.bfloat16, 40), (torch.bfloat16, 264),
+    (torch.float32, 112)])
+def test_route_refuses_head_dim(dtype, d):
+    with pytest.raises(ValueError, match="head dim"):
+        fa._route(dtype, d)
+
+
+def test_route_refuses_dtype():
+    with pytest.raises(TypeError, match="share"):
+        fa._route(torch.float16, 128)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 112])
+def test_plain_matches_xla_loop_new_head_dims(d, dtype, causal, window,
+                                              rng):
+    """The sm90 route's new head dims (stablelm-3b's 80, kimi-k2's 112)
+    through the plain version against flash_attention_xla at a ragged S,
+    with the same chunks."""
+    (q, k, v), (jq, jk, jv) = _as(dtype, _qkv(rng, 1, 4, 2, 100, d))
+    want = flash_attention_xla(jq, jk, jv, causal=causal, window=window,
+                               q_chunk=32, kv_chunk=64)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=32, kv_chunk=64)
+    assert got.dtype == dtype
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [80, 112])
+def test_plain_matches_pallas_kernel_new_head_dims(d, dtype, causal, window,
+                                                   rng):
+    """The same head dims against flash_attention_pallas in interpret mode,
+    at an S that its blocks divide."""
+    (q, k, v), (jq, jk, jv) = _as(dtype, _qkv(rng, 1, 4, 2, 128, d))
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  bq=64, bkv=64)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_chunk=64, kv_chunk=64)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32),
+        **(BF16_TOL if dtype == torch.bfloat16 else TOL))
 
 
 def test_flash_cpu_tensor_takes_plain_version(rng):

@@ -307,3 +307,18 @@ def test_chip_smoke_lm_phases_run_on_cpu(name):
     par = smoke.phase_lm_parity("cpu", cfg, max_len=32, prompt=19, new=3)
     assert par["max_logit_err_rel"] == 0.0 and par["tokens_compared"] == 3
     assert par["bucket"] == 16
+
+
+def test_chip_smoke_attn_cases_take_their_route():
+    """Every B3 case that chip_smoke.py checks on the card is one that the
+    route of its dtype takes (bf16: sm90, fp32: fma), and the cases cover
+    the sm90 route's new head dims (80, kimi-k2's 112) and a ragged S."""
+    from repro_torch.kernels.flash_attention import _route
+
+    smoke = _smoke()
+    cases = smoke.attn_cases()
+    for name, b, hq, hkv, s, d, causal, window, dt in cases:
+        assert _route(dt, d) == smoke.B3_ROUTE[dt], name
+    bf16 = [c for c in cases if c[-1] == torch.bfloat16]
+    assert {c[5] for c in bf16} >= {80, 112, 128, 256}
+    assert any(c[4] % 128 for c in bf16)
