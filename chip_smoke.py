@@ -5,13 +5,15 @@
 
 Phases, each a function of a device and a size:
 
-1. build      — compile the five sources of ``src/repro_torch/csrc``
-                (``conv2d_nchwc.cu`` B1, ``matmul_blocked.cu`` B2,
-                ``flash_attention_sm90.cu`` B3's bf16 route and
-                ``flash_attention.cu`` its fp32 route, ``ssd_chunk.cu`` B4)
-                with nvcc for sm_90a, one nvcc each, all started together,
-                and print ptxas's registers, shared memory and spills (and
-                the sm90 kernel's dynamic shared memory per head dim);
+1. build      — compile the seven sources of ``src/repro_torch/csrc``
+                (``conv2d_nchwc.cu`` B1; B2's three routes,
+                ``matmul_splitk.cu``, ``matmul_blocked_sm90.cu`` and
+                ``matmul_blocked.cu``; ``flash_attention_sm90.cu`` B3's
+                bf16 route and ``flash_attention.cu`` its fp32 route;
+                ``ssd_chunk.cu`` B4) with nvcc for sm_90a, one nvcc each,
+                all started together, and print ptxas's registers, shared
+                memory and spills (and the sm90 kernels' dynamic shared
+                memory, and B2's cluster sizes at the router's shapes);
 2. kernels    — B1 against its plain PyTorch version on the card, on every
                 distinct conv of ResNet-50's plan at batch 1 (its planned
                 blocks and epilogues), a DenseNet-style concat-offset store
@@ -21,9 +23,13 @@ Phases, each a function of a device and a size:
                 predict must launch B1 once per conv_block, and the batch-1
                 output must match a CPU session of the same seed and plan;
 4. lm_kernels — B2, B3 and B4 against their plain versions on the card:
-                B2 at arctic-480b's router shapes (prefill and decode, fp32
-                and bf16 operands), every matmul tail of the reference's
-                tests, attention_probs, ragged and padded-operand cases; B3
+                B2 (each case naming its route, two launches bit-identical)
+                at arctic-480b's router shapes (prefill and decode, fp32
+                and bf16 operands), kimi-k2's (384 experts), the splitk /
+                sm90 boundary (M = 16, 63, 64), the identity tail at the
+                prefill shape under the fp64 bound, every matmul tail of
+                the reference's tests, attention_probs, ragged and
+                padded-operand cases; B3
                 (each case naming the route it took) at qwen2-1.5b's,
                 arctic-480b's and kimi-k2's prefill shapes, plus ragged,
                 windowed, non-causal, MHA, head dim 80 and reduced cases;
@@ -35,14 +41,15 @@ Phases, each a function of a device and a size:
                 route.  The same for
                 ``mamba2-130m`` with B4, 24 times per prefill, and, last,
                 for arctic-480b at full width and 2 layers, with B3 once per
-                layer per prefill and B2 once per layer per prefill and per
-                decode step;
+                layer per prefill and B2 once per layer per prefill (its
+                sm90 route) and per decode step (its splitk route);
 6. lm_parity  — each model at full width, fp32 (qwen2 and mamba2 at 2
                 layers, arctic at 1 layer and 8 experts): a session on the
                 card and one on the CPU, from the same weights, agree on
                 the logits of every step and on the greedy tokens under the
                 top-2 margin rule (and, for arctic, the routing margin
-                rule); their fp32 attention must take B3's fma route;
+                rule); their fp32 attention must take B3's fma route, and
+                arctic's fp32 router B2's fma and splitk routes only;
 7. times      — per conv: B1, its plain version, cuDNN's conv2d and the
                 roofline bound, with CUDA events; end-to-end predict
                 latency at batch 1 and 8; device time by kernel over
@@ -50,8 +57,10 @@ Phases, each a function of a device and a size:
 8. lm_times   — B3 per prefill bucket and at arctic-480b's and kimi-k2's
                 2,048-token shapes (kernel, plain, SDPA, bound), B4 at
                 mamba2's prefill shapes (kernel, plain, bound), B2 at the
-                router shapes (kernel, plain, bound, and torch's matmul and
-                softmax); per model prefill ms per bucket, decode ms per
+                router shapes in bf16 and fp32 (kernel by events and by
+                profiler device time, plain, bound, and torch's matmul and
+                softmax on fp32 copies and on the bf16 operands); per model
+                prefill ms per bucket, decode ms per
                 token, tokens/s at batch 1 and 4, peak device memory, and
                 the card's idle share over a decode loop from a
                 ``torch.profiler`` trace.  The earlier models' sessions are
@@ -86,7 +95,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MODEL, IMAGE, BIG_BATCH = "resnet-50", 224, 8
 KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc.cu"
-KERNEL_NAMES = ("conv2d_nchwc", "matmul_blocked", "flash_attention_sm90",
+KERNEL_NAMES = ("conv2d_nchwc", "matmul_blocked", "matmul_splitk",
+                "matmul_blocked_sm90", "flash_attention_sm90",
                 "flash_attention", "ssd_chunk")
 PEAK_FP32 = 67e12          # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
@@ -129,11 +139,22 @@ def phase_build() -> list:
     with ThreadPoolExecutor(len(KERNEL_NAMES)) as pool:
         infos = list(pool.map(kbuild.build, KERNEL_NAMES))
     outs = [_build_report(n, i) for n, i in zip(KERNEL_NAMES, infos)]
+    from repro_torch.kernels.flash_attention import sm90_smem_bytes
+    from repro_torch.kernels.matmul_blocked import (cluster_size,
+                                                    sm90_smem_bytes as mm_smem)
+
     for out in outs:
         if out["source"].endswith("flash_attention_sm90.cu"):
-            from repro_torch.kernels.flash_attention import sm90_smem_bytes
             out["dynamic_smem_bytes"] = {d: sm90_smem_bytes(d)
                                          for d in (64, 128, 192, 256)}
+        if out["source"].endswith("matmul_blocked_sm90.cu"):
+            out["dynamic_smem_bytes"] = {n: mm_smem(n)
+                                         for n in (64, 128, 256, 384, 512)}
+            out["cluster_blocks"] = {f"{m}x{ROUTER_K}": cluster_size(
+                "sm90", m, ROUTER_K) for m in (64, 512, 2048)}
+        if out["source"].endswith("matmul_splitk.cu"):
+            out["cluster_blocks"] = {f"{m}x{ROUTER_K}": cluster_size(
+                "splitk", m, ROUTER_K) for m in (1, 4, 63)}
         emit(out)
     return outs
 
@@ -497,6 +518,7 @@ MM_SPECS = {
     "scale_relu": dict(scale=0.5, relu=True)}
 ROUTER_K, ROUTER_N = 7168, 128       # arctic-480b's d_model and experts
 ROUTER_M = (2048, 1, 4)              # tokens: prefill, decode at batch 1, 4
+KIMI_N = 384                         # kimi-k2's experts (its d_model is 7,168)
 
 
 def attn_cases() -> list:
@@ -571,18 +593,27 @@ def ssd_inputs(bcn, h, q, n, p, device, decay="slow", seed=0):
 
 
 def mm_cases() -> list:
-    """(name, M, K, N, tail, operand dtype): the router at prefill and
-    decode with fp32 and bf16 operands, the identity tail at the prefill
-    router shape, every tail of the reference's tests at their shapes, and
-    two ragged shapes."""
+    """(name, M, K, N, tail, operand dtype): arctic-480b's router at
+    prefill and decode with fp32 and bf16 operands, kimi-k2's (384
+    experts), the splitk / sm90 boundary (M = 16, 63, 64), the identity
+    tail at the prefill router shape with fp32 and bf16 operands, every
+    tail of the reference's tests at their shapes with fp32 and bf16
+    operands, and two ragged shapes."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(f"router_m{m}_{str(dt)[6:]}", m, ROUTER_K, ROUTER_N,
               "softmax", dt) for m in ROUTER_M for dt in (f32, bf)]
-    cases.append(("router_identity_m2048_float32", 2048, ROUTER_K, ROUTER_N,
-                  "identity", f32))
+    cases += [(f"kimi_k2_router_m{m}_bfloat16", m, ROUTER_K, KIMI_N,
+               "softmax", bf) for m in ROUTER_M]
+    cases += [(f"router_m{m}_bfloat16", m, ROUTER_K, ROUTER_N, "softmax",
+               bf) for m in (16, 63, 64)]
+    cases += [(f"router_identity_m2048_{str(dt)[6:]}", 2048, ROUTER_K,
+               ROUTER_N, "identity", dt) for dt in (f32, bf)]
+    # the reference's tails at its shapes: fp32 (fma, splitk at M = 40) and
+    # bf16 (sm90 at M >= 64, splitk at M = 40)
     for tail in MM_SPECS:
         for m, k, n in ((128, 128, 128), (96, 64, 80), (40, 32, 200)):
             cases.append((f"{tail}_{m}x{k}x{n}", m, k, n, tail, f32))
+            cases.append((f"{tail}_{m}x{k}x{n}_bfloat16", m, k, n, tail, bf))
     for m, k, n in ((100, 130, 60), (33, 257, 129)):
         for tail in ("softmax", "attention_tail", "identity", "scale_relu"):
             for dt in (f32, bf):
@@ -638,7 +669,8 @@ def mm_fp64(a, b, spec, out_dtype):
     return x, err
 
 
-def check_b2(name, got, a, b, spec, device, n_valid=None) -> float:
+def check_b2(name, got, a, b, spec, device, n_valid=None,
+             route=None) -> float:
     """B2's output against its plain version; any tail but a softmax also
     against the fp64 bound.  Returns the largest error against plain."""
     want = mm_plain(a, b, spec, n_valid=n_valid, out_dtype=got.dtype)
@@ -647,7 +679,8 @@ def check_b2(name, got, a, b, spec, device, n_valid=None) -> float:
         raise RuntimeError(f"B2 {name}: non-finite kernel output")
     err = float((got.float() - want.float()).abs().max())
     row = {"phase": "lm_kernel_vs_plain", "kernel": "matmul_blocked",
-           "case": name, "out_dtype": str(got.dtype)[6:], "max_abs_err": err}
+           "case": name, "route": route, "out_dtype": str(got.dtype)[6:],
+           "max_abs_err": err}
     if spec.softmax:
         torch.testing.assert_close(got.float(), want.float(), **PROB_TOL)
         row.update(PROB_TOL)
@@ -675,43 +708,68 @@ def check_b2(name, got, a, b, spec, device, n_valid=None) -> float:
     return err
 
 
-def phase_lm_b2(device) -> float:
-    """B2 against its plain version on every case of ``mm_cases``, then
-    ``attention_probs`` at S = 512, D = 128, and a padded-operand case
-    with ``n_valid``; returns the largest abs error."""
+def b2_launch(a, b, **kw):
+    """One B2 launch and the route it took, by ``launches_by_route``."""
+    from repro_torch.kernels.matmul_blocked import matmul_blocked
+
+    before = dict(matmul_blocked.launches_by_route)
+    out = matmul_blocked(a, b, **kw)
+    routes = [r for r, n in matmul_blocked.launches_by_route.items()
+              if n != before[r]]
+    return out, routes
+
+
+def phase_lm_b2(device) -> dict:
+    """B2 against its plain version on every case of ``mm_cases``, each
+    on the route ``_route`` names for it and bit-identical over two
+    launches, then ``attention_probs`` at S = 512, D = 128, and a
+    padded-operand case with ``n_valid``; returns the largest abs error of
+    each route."""
     from repro_torch.core.epilogue import EpilogueSpec
-    from repro_torch.kernels.matmul_blocked import (MatmulSchedule,
-                                                    matmul_blocked,
+    from repro_torch.kernels.matmul_blocked import (MatmulSchedule, _route,
                                                     pad_operands)
     from repro_torch.kernels.ops import attention_probs
 
-    worst = 0.0
+    worst = {"splitk": 0.0, "sm90": 0.0, "fma": 0.0}
     for name, m, k, n, tail, dt in mm_cases():
         spec = EpilogueSpec(**MM_SPECS[tail])
         a, b = mm_inputs(m, k, n, dt, device, spec.softmax)
-        # the router reads its probabilities in fp32; other tails store in
-        # the operands' type
-        out_dtype = torch.float32 if spec.softmax else dt
-        got = matmul_blocked(a, b, epilogue=spec, out_dtype=out_dtype)
-        worst = max(worst, check_b2(name, got, a, b, spec, device))
+        # the router reads its probabilities in fp32, and the identity
+        # tail at the router's shape is held in fp32 against the fp64
+        # bound; other tails store in the operands' type
+        out_dtype = torch.float32 if spec.softmax \
+            or name.startswith("router") else dt
+        got, routes = b2_launch(a, b, epilogue=spec, out_dtype=out_dtype)
+        again, _ = b2_launch(a, b, epilogue=spec, out_dtype=out_dtype)
+        route = _route(m, k, n, dt)
+        if routes != [route]:
+            raise RuntimeError(f"B2 {name}: took route {routes}, expected "
+                               f"{route}")
+        torch.cuda.synchronize(device)
+        if not torch.equal(got, again):
+            raise RuntimeError(f"B2 {name}: two launches differ ({route})")
+        worst[route] = max(worst[route],
+                           check_b2(name, got, a, b, spec, device,
+                                    route=route))
     for causal in (True, False):
         q, k = attn_inputs(1, 1, 1, 512, 128, torch.float32, device)[:2]
         q, k = q[0, 0], k[0, 0]
         spec = EpilogueSpec(scale=128 ** -0.5,
                             mask="causal" if causal else "none", softmax=True)
         got = attention_probs(q, k, causal=causal)
-        worst = max(worst, check_b2(f"attention_probs_s512_d128_"
-                                    f"{'causal' if causal else 'full'}",
-                                    got, q, k.t().contiguous(), spec, device))
+        worst["fma"] = max(worst["fma"], check_b2(
+            f"attention_probs_s512_d128_{'causal' if causal else 'full'}",
+            got, q, k.t().contiguous(), spec, device, route="fma"))
     # operands padded as the reference pads them, with n_valid: equal to
     # the unpadded result, the padded columns at probability 0
     spec = EpilogueSpec(scale=0.5, softmax=True)
     a, b = mm_inputs(70, 200, 50, torch.float32, device, True, seed=1)
     ap, bp, _, nv = pad_operands(a, b, MatmulSchedule(), spec)
-    got = matmul_blocked(ap, bp, epilogue=spec, n_valid=nv)
-    flat = matmul_blocked(a, b, epilogue=spec)
-    worst = max(worst, check_b2("padded_70x200x50_n_valid", got, ap, bp,
-                                spec, device, n_valid=nv))
+    got, _ = b2_launch(ap, bp, epilogue=spec, n_valid=nv)
+    flat, _ = b2_launch(a, b, epilogue=spec)
+    worst["fma"] = max(worst["fma"], check_b2(
+        "padded_70x200x50_n_valid", got, ap, bp, spec, device, n_valid=nv,
+        route="fma"))
     torch.testing.assert_close(got[:70, :50], flat, **PROB_TOL)
     if not torch.all(got[:, 50:] == 0):
         raise RuntimeError("B2: padded columns got probability mass")
@@ -754,7 +812,7 @@ def phase_lm_b3(device) -> float:
 
 def phase_lm_kernels(device) -> dict:
     """B2, B3 and B4 against their plain versions; returns the largest abs
-    error of each."""
+    error of each (B2's by route)."""
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
 
     worst = {"matmul_blocked": phase_lm_b2(device),
@@ -791,13 +849,17 @@ def _kernel_fns() -> dict:
 def reset_counts() -> None:
     for fn in _kernel_fns().values():
         fn.launches = 0
-    by_route = _kernel_fns()["flash_attention"].launches_by_route
-    for route in by_route:
-        by_route[route] = 0
+        by_route = getattr(fn, "launches_by_route", {})
+        for route in by_route:
+            by_route[route] = 0
 
 
 def b3_routes() -> dict:
     return dict(_kernel_fns()["flash_attention"].launches_by_route)
+
+
+def b2_routes() -> dict:
+    return dict(_kernel_fns()["matmul_blocked"].launches_by_route)
 
 
 def read_counts() -> dict:
@@ -853,15 +915,22 @@ ARCTIC_LAYERS = 2
 # a bucket of 128 plus 8 catch-up steps
 ARCTIC_PARITY = dict(n_layers=1, n_experts=8, max_len=512, prompt=136,
                      new=8)
-# (kernel, model, source, TPU kernel, the row of ``phase_lm_kernel_times``
-# at that model's largest prefill)
+# (entry, wrapper, route, model, source, TPU kernel, the row of
+# ``phase_lm_kernel_times[wrapper]``): B2's two routes of arctic-480b's
+# main path (sm90 at its 2,048-token prefill, splitk at a batch-1 decode
+# step), B3 at qwen2-1.5b's 2,048-token prefill, B4 at mamba2-130m's
 LM_KERNEL_ROWS = (
-    ("matmul_blocked", ARCTIC, "src/repro_torch/csrc/matmul_blocked.cu",
+    ("matmul_blocked_sm90", "matmul_blocked", "sm90", ARCTIC,
+     "src/repro_torch/csrc/matmul_blocked_sm90.cu",
      "src/repro/kernels/matmul_blocked.py:73", 0),
-    ("flash_attention", "qwen2-1.5b",
+    ("matmul_splitk", "matmul_blocked", "splitk", ARCTIC,
+     "src/repro_torch/csrc/matmul_splitk.cu",
+     "src/repro/kernels/matmul_blocked.py:73", 1),
+    ("flash_attention", "flash_attention", None, "qwen2-1.5b",
      "src/repro_torch/csrc/flash_attention_sm90.cu",
      "src/repro/kernels/flash_attention.py:84", 2),
-    ("ssd_intra", "mamba2-130m", "src/repro_torch/csrc/ssd_chunk.cu",
+    ("ssd_intra", "ssd_intra", None, "mamba2-130m",
+     "src/repro_torch/csrc/ssd_chunk.cu",
      "src/repro/kernels/ssd_chunk.py:46", 2))
 LM_REQUESTS = ((2048, 1), (1024, 64), (700, 64), (100, 32))
 LM_BIG = (4, 1024, 512, 32)     # batch, max_len, prompt, new tokens
@@ -914,6 +983,7 @@ def phase_lm_main(device, model, max_len: int = 2048,
             traced.append(calls[first:])
         counts = read_counts()
         routes = b3_routes()
+        mm_routes = b2_routes()
 
     n_prefills = sum(1 for (sess, shape, _) in work
                      if sess.bucket_for(shape[1]) is not None)
@@ -934,6 +1004,19 @@ def phase_lm_main(device, model, max_len: int = 2048,
         raise RuntimeError(f"{model}: B3 launches by route {routes}, "
                            f"expected all {counts['flash_attention']} on "
                            "sm90")
+    # a bf16 MoE router takes B2's tensor-core route in every prefill and
+    # its split-K route at every decode step
+    if "matmul_blocked" in kernels:
+        pp, pd = kernels["matmul_blocked"]
+        want_mm = {"splitk": 0, "sm90": 0, "fma": 0}
+        if on_card:
+            for sess, shape, new in work:
+                bucket = sess.bucket_for(shape[1])
+                want_mm["sm90"] += bool(bucket) * pp
+                want_mm["splitk"] += (shape[1] - (bucket or 0) + new - 1) * pd
+        if mm_routes != want_mm:
+            raise RuntimeError(f"{model}: B2 launches by route {mm_routes}, "
+                               f"expected {want_mm}")
     for (sess, shape, new), y in zip(work, outs):
         if y.shape != (shape[0], new) or y.dtype != np.int32 \
                 or y.min() < 0 or y.max() >= cfg.vocab:
@@ -967,6 +1050,7 @@ def phase_lm_main(device, model, max_len: int = 2048,
            "launches": sum(counts[k] for k in kernels),
            "launches_by_kernel": {k: counts[k] for k in kernels},
            "b3_launches_by_route": routes,
+           "b2_launches_by_route": mm_routes,
            "launches_per_request": per_request, "compile_s": compile_s,
            "generate_ms": t_gen}
     if moe:
@@ -1046,7 +1130,7 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
     toks = np.random.default_rng(seed + 2).integers(0, cfg.vocab,
                                                     size=(1, prompt))
     want_logits, got_logits = [], []
-    routes0 = b3_routes()
+    routes0, mm_routes0 = b3_routes(), b2_routes()
     with moe_recording() as calls:
         want_tokens = ref.generate(toks, new, pick=_recording(want_logits))
     moe = cfg.family == "moe"
@@ -1084,6 +1168,14 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
             and (routes["sm90"] or not routes["fma"]):
         raise RuntimeError(f"{model}: fp32 B3 launches by route {routes}, "
                            "expected all on fma")
+    # an fp32 router never takes B2's tensor-core route: its prefills take
+    # fma, its decode steps splitk
+    mm_routes = {r: n - mm_routes0[r] for r, n in b2_routes().items()}
+    if on_card and "matmul_blocked" in lm_kernels_of(cfg) \
+            and (mm_routes["sm90"] or not mm_routes["fma"]
+                 or not mm_routes["splitk"]):
+        raise RuntimeError(f"{model}: fp32 B2 launches by route "
+                           f"{mm_routes}, expected fma and splitk only")
     compared = 0
     for i in steps:
         want = want_logits[i]
@@ -1102,7 +1194,8 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
            "bucket": ref.bucket_for(prompt), "new_tokens": new,
            "max_logit_err_rel": max(errs, default=None),
            "logit_tol_rel": tol, "steps_compared": len(steps),
-           "tokens_compared": compared, "b3_launches_by_route": routes}
+           "tokens_compared": compared, "b3_launches_by_route": routes,
+           "b2_launches_by_route": mm_routes}
     if moe:
         out.update(routing_near_ties=len(ties),
                    routing_near_tie_positions=ties[:16],
@@ -1155,37 +1248,75 @@ def mm_bound(m, k, n, dtype) -> dict:
             "bound_by": "operations" if t_op >= t_mem else "bytes"}
 
 
+B2_TIMED = (  # (M, N, tail, operand dtype): the main path's bf16 rows
+    [(m, ROUTER_N, "softmax", torch.bfloat16) for m in ROUTER_M]
+    # the fp32 rows: the parity copies' router, and the operands the
+    # router cast to before it passed bf16 as it is
+    + [(m, ROUTER_N, "softmax", torch.float32) for m in ROUTER_M]
+    # the splitk / sm90 boundary, kimi-k2's router, the identity tail
+    + [(m, ROUTER_N, "softmax", torch.bfloat16) for m in (16, 63, 64)]
+    + [(m, KIMI_N, "softmax", torch.bfloat16) for m in (2048, 1)]
+    + [(2048, ROUTER_N, "identity", dt)
+       for dt in (torch.bfloat16, torch.float32)])
+
+
 def b2_times(device, iters: int = 20) -> list:
-    """B2 per launch at arctic-480b's router shapes (fp32 operands, as the
-    router casts them; softmax tail), and with the identity tail at the
-    prefill shape: kernel, plain version, bound and one library baseline
-    with TF32 off, ``torch.softmax(torch.matmul(a, b), -1)`` (two calls)
-    for the router and ``torch.matmul`` for the identity tail.  b (3.7 MB)
+    """B2 per launch at the router shapes of ``B2_TIMED`` (K = 7,168):
+    the kernel on its route, its plain version, the bound, and two library
+    calls with TF32 off: one on fp32 copies of the operands,
+    ``torch.softmax(torch.matmul(a, b), -1)`` (``torch.matmul``
+    for the identity tail), and for bf16 operands the one on the operands
+    as they are, ``torch.softmax(torch.mm(a, b, out_dtype=torch.float32),
+    -1)``.  Each is timed with CUDA events over back-to-back calls (at
+    decode shapes that is the host's enqueue) and by the card's own time
+    per call from a profiler trace (``device_ms``).  b (1.8 or 3.7 MB)
     stays in L2 across the back-to-back launches."""
     from repro_torch.core.epilogue import IDENTITY, EpilogueSpec
-    from repro_torch.kernels.matmul_blocked import matmul_blocked
+    from repro_torch.kernels.matmul_blocked import _route, matmul_blocked
 
-    soft = EpilogueSpec(softmax=True)
     rows = []
-    for m, spec in [(m, soft) for m in ROUTER_M] + [(2048, IDENTITY)]:
-        a, b = mm_inputs(m, ROUTER_K, ROUTER_N, torch.float32, device,
-                         spec.softmax)
-        if spec.softmax:
-            def lib():
-                return torch.softmax(torch.matmul(a, b), -1)
-            label = "torch.softmax(torch.matmul(a, b), -1), two calls"
-        else:
-            def lib():
-                return torch.matmul(a, b)
-            label = "torch.matmul(a, b)"
+    for m, n, tail, dt in B2_TIMED:
+        spec = EpilogueSpec(softmax=True) if tail == "softmax" else IDENTITY
+        a, b = mm_inputs(m, ROUTER_K, n, dt, device, spec.softmax)
+        a32, b32 = a.float(), b.float()
+
+        def kernel():
+            return matmul_blocked(a, b, epilogue=spec,
+                                  out_dtype=torch.float32)
+
+        def lib_fp32():
+            y = torch.matmul(a32, b32)
+            return torch.softmax(y, -1) if spec.softmax else y
+
+        def lib_bf16():
+            y = torch.mm(a, b, out_dtype=torch.float32)
+            return torch.softmax(y, -1) if spec.softmax else y
+
         row = {"phase": "lm_times", "kernel": "matmul_blocked",
-               "shape": [m, ROUTER_K, ROUTER_N], "dtype": "float32",
-               "tail": "softmax" if spec.softmax else "identity",
-               "ms": cuda_ms(lambda: matmul_blocked(a, b, epilogue=spec),
-                             iters),
+               "shape": [m, ROUTER_K, n], "dtype": str(dt)[6:],
+               "tail": tail, "route": _route(m, ROUTER_K, n, dt),
+               "ms": cuda_ms(kernel, iters),
+               "device_ms": _device_busy(kernel, iters)["device_ms"],
                "plain_ms": cuda_ms(lambda: mm_plain(a, b, spec), iters),
-               "library_ms": cuda_ms(lib, iters), "library": label,
-               **mm_bound(m, ROUTER_K, ROUTER_N, torch.float32)}
+               "library": "torch.softmax(torch.matmul(a.float(), "
+                          "b.float()), -1)" if spec.softmax
+                          else "torch.matmul(a.float(), b.float())",
+               "library_ms": cuda_ms(lib_fp32, iters),
+               "library_device_ms": _device_busy(lib_fp32,
+                                                 iters)["device_ms"],
+               **mm_bound(m, ROUTER_K, n, dt)}
+        if dt == torch.bfloat16:
+            row["library_bf16"] = (
+                "torch.softmax(torch.mm(a, b, out_dtype=torch.float32), -1)"
+                if spec.softmax else
+                "torch.mm(a, b, out_dtype=torch.float32)")
+            try:
+                row.update(library_bf16_ms=cuda_ms(lib_bf16, iters),
+                           library_bf16_device_ms=_device_busy(
+                               lib_bf16, iters)["device_ms"])
+            except (RuntimeError, TypeError) as e:   # an older torch
+                row.update(library_bf16_ms=None, library_bf16_device_ms=None,
+                           library_bf16_error=str(e)[:200])
         emit(row)
         rows.append(row)
     return rows
@@ -1428,20 +1559,27 @@ def main() -> int:
                 "bound_by": "operations" if t_op >= t_mem else "bytes",
                 "library_ms": total("library_ms")}]
     # B2, B3 and B4: per prefill of the largest bucket (2,048 tokens at
-    # batch 1), i.e. one launch per layer at that bucket's shape
-    for name, model, source, replaces, row in LM_KERNEL_ROWS:
+    # batch 1), or for B2's splitk route per batch-1 decode step, i.e. one
+    # launch per layer at that shape.  B2's times are the card's own (from
+    # a profiler trace) and its library call the one on its bf16 operands.
+    for name, fn, route, model, source, replaces, row in LM_KERNEL_ROWS:
         run = lm_runs[model]
         n = run["n_layers"]
-        r = lm_rows[name][row]
+        r = lm_rows[fn][row]
+        ms, lib = r["ms"], r["library_ms"]
+        if route is not None:
+            dev, lib_dev = r["device_ms"], r.get("library_bf16_device_ms")
+            ms = dev if isinstance(dev, float) else ms
+            lib = lib_dev if isinstance(lib_dev, float) else None
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": run["launches_by_kernel"][name],
-            "max_abs_err": lm_worst[name], "ms": n * r["ms"],
-            "plain_ms": n * r["plain_ms"], "bound_ms": n * r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": None if r["library_ms"] is None
-            else n * r["library_ms"]})
+            "launches": run["b2_launches_by_route"][route] if route
+            else run["launches_by_kernel"][fn],
+            "max_abs_err": lm_worst[fn][route] if route else lm_worst[fn],
+            "ms": n * ms, "plain_ms": n * r["plain_ms"],
+            "bound_ms": n * r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None if lib is None else n * lib})
         if name == "flash_attention":
             # the main path's B3 is the bf16 route; fp32 takes the FMA one
             kernels[-1]["variant"] = "sm90: wgmma + TMA, bf16"

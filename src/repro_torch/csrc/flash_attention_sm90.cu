@@ -66,14 +66,13 @@
 // The C entry returns the launch's cudaError_t, or 10000 + the CUresult of
 // cuTensorMapEncodeTiled, or 20000 when libcuda has no such encoder.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -94,71 +93,7 @@ template <int DP> struct Cfg {   // DP: the head dim padded to a multiple of 64
   static constexpr int SMEM = BAR_OFF + 9 * 8 + 1024;   // + 1024-B alignment
 };
 
-// ---- shared-memory barriers and TMA ---------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(bh)
-      : "memory");
-}
-
-// ---- wgmma ----------------------------------------------------------------
-
-// A shared-memory matrix descriptor for a tile in TMA's 128-byte swizzle:
-// start address, leading and stride byte offsets (16-byte units), and
-// layout type 1 (128-byte swizzle) in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
+// ---- wgmma and named barriers ---------------------------------------------
 
 // Named barriers 1 and 2 pass the tensor cores' turn between the two
 // consumer warpgroups: the one whose turn it is syncs, the other arrives.
@@ -168,33 +103,6 @@ __device__ __forceinline__ void named_sync(int id) {
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(CONSUMERS) : "memory");
 }
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence / wait around it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
-#define F16(a, i) F4(a, i), F4(a, i + 4), F4(a, i + 8), F4(a, i + 12)
-#define F32(a, i) F16(a, i), F16(a, i + 16)
-#define R32                                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define R64                                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x N fp32) = (acc ? d : 0) + A (64 x 16, smem) * B (16 x N, smem),
 // both K-major.
@@ -248,20 +156,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---- the consumer's steps --------------------------------------------------
@@ -452,7 +346,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(k_empty + 8 * st, CONSUMERS);
       mbar_init(v_empty + 8 * st, CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -463,14 +357,14 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
       for (int p = 0; p < NP; ++p)
-        tma_load(q_s + p * BQ * ROW_BYTES, &tq, q_full, p * PANEL, q0, bh);
+        tma_load_3d(q_s + p * BQ * ROW_BYTES, &tq, q_full, p * PANEL, q0, bh);
       for (int t = 0; t <= n_tiles; ++t) {
         if (t < n_tiles) {
           const int st = t & 1;
           if (t >= 2) mbar_wait(k_empty + 8 * st, ((t >> 1) & 1) ^ 1);
           mbar_expect_tx(k_full + 8 * st, C::KV_BYTES);
           for (int p = 0; p < NP; ++p)
-            tma_load(k_s + st * C::KV_BYTES + p * BK * ROW_BYTES, &tk,
+            tma_load_3d(k_s + st * C::KV_BYTES + p * BK * ROW_BYTES, &tk,
                      k_full + 8 * st, p * PANEL, (t_lo + t) * BK, kvh);
         }
         if (t >= 1) {
@@ -478,7 +372,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           if (u >= 2) mbar_wait(v_empty + 8 * st, ((u >> 1) & 1) ^ 1);
           mbar_expect_tx(v_full + 8 * st, C::KV_BYTES);
           for (int p = 0; p < NP; ++p)
-            tma_load(v_s + st * C::KV_BYTES + p * BK * ROW_BYTES, &tv,
+            tma_load_3d(v_s + st * C::KV_BYTES + p * BK * ROW_BYTES, &tv,
                      v_full + 8 * st, p * PANEL, (t_lo + u) * BK, kvh);
         }
       }
@@ -601,26 +495,6 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---- host -----------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The tensor-map encoder cuTensorMapEncodeTiled, found in the libcuda that
-// the process has loaded (nothing links against libcuda).
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiled>(
-                                dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
 
 // A 3-D map over a (B*H, S, D) bf16 tensor, boxes of 64 columns x rows.
 int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int bh, int s,

@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one source ``csrc/<name>.cu`` with a plain C entry.  It is
+Each kernel is one source ``csrc/<name>.cu`` with a plain C entry; it may
+include headers of ``csrc/`` (``#include "<header>.cuh"``).  It is
 compiled on first use with ``nvcc`` for ``sm_90a`` into ``_build/`` of this
-package (listed in ``.gitignore``) as a shared library keyed by the
-source's content and the flags, and loaded with ``ctypes``.  Nothing is
-built when a module is imported.
+package (listed in ``.gitignore``) as a shared library keyed by the content
+of the source and of every header it includes, and the flags, and loaded
+with ``ctypes``.  Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: dict = {}
 _lock = threading.Lock()
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -38,6 +41,31 @@ def _nvcc() -> str:
     return found
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes, directly
+    or through another header, each once, in the order first reached."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [path.parent / inc for inc in
+                 _INCLUDE.findall(path.read_text())
+                 if (path.parent / inc).is_file()]
+    return out
+
+
+def digest(name: str) -> str:
+    """The key of kernel ``name``'s build: its source, its headers and the
+    flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` (once per source and flags) and return
     ``{"path", "seconds", "ptxas"}``: the shared library, the build's
@@ -45,9 +73,7 @@ def build(name: str) -> dict:
     ``-Xptxas -v`` report of registers, shared memory and spills.
     Builds of different sources may run in parallel threads."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
+    lib = BUILD_DIR / f"{name}-{digest(name)}.so"
     log = lib.with_suffix(".log")
     if lib.exists() and log.exists():
         return {"path": lib, "seconds": 0.0, "ptxas": log.read_text()}

@@ -78,12 +78,15 @@ def conv2d(x_nchw: torch.Tensor, w_kcrs: torch.Tensor, *, stride: int = 1,
 
 
 def dense_softmax(x: torch.Tensor, w: torch.Tensor, *,
-                  schedule: Optional[MatmulSchedule] = None) -> torch.Tensor:
+                  schedule: Optional[MatmulSchedule] = None,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``softmax(x @ w, axis=-1)`` with the row softmax fused into the
     matmul: the MoE router's instantiation (and the LM head's).  Any
-    (M, K, N), through ``matmul_padded``."""
+    (M, K, N), through ``matmul_padded``; the sums are fp32 whatever the
+    operands' type, the output in ``out_dtype`` (default ``x``'s type)."""
     return matmul_padded(x, w, schedule=schedule or MatmulSchedule(),
-                         epilogue=EpilogueSpec(softmax=True))
+                         epilogue=EpilogueSpec(softmax=True),
+                         out_dtype=out_dtype)
 
 
 def attention_probs(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,

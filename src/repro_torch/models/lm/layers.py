@@ -183,7 +183,10 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: LMConfig
     cap = moe_capacity(t, cfg)
     dev = x.device
 
-    probs = dense_softmax(x.float(), p["router"].float())      # (T, E), B2
+    # the reference's fp32 logits of x.astype(f32) @ router.astype(f32): B2
+    # sums in fp32 whatever the operands' type, so bf16 operands pass as
+    # they are (the product of two bf16 numbers is exact in fp32)
+    probs = dense_softmax(x, p["router"], out_dtype=torch.float32)  # (T, E)
     gates, eids = torch.topk(probs, k, dim=-1)                 # descending
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 

@@ -146,6 +146,30 @@ def test_router_runs_through_dense_softmax(monkeypatch):
     assert calls[t_cfg.n_layers:] == [(2, t_cfg.d_model)] * t_cfg.n_layers
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_router_passes_its_operands_as_they_are(monkeypatch, dtype):
+    """The router hands dense_softmax the model's own operands (bf16 in a
+    bf16 model, no cast kernels) and asks for fp32 probabilities, the
+    reference's x.astype(f32) @ router.astype(f32) then softmax."""
+    cfg = dataclasses.replace(reduced(ARCHS["arctic-480b"]), dtype=dtype)
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    seen = []
+    real = TL.dense_softmax
+
+    def spy(x, w, **kw):
+        out = real(x, w, **kw)
+        seen.append((x.dtype, w.dtype, kw.get("out_dtype"), out.dtype))
+        return out
+
+    monkeypatch.setattr(TL, "dense_softmax", spy)
+    toks = torch.from_numpy(_toks(cfg, (2, 9)))
+    cache, _ = TM.prefill(params, cfg, toks, max_len=16)
+    TM.decode_step(params, cfg, toks[:, :1], cache, 9)
+    want = getattr(torch, dtype)
+    assert seen == [(want, want, torch.float32, torch.float32)] \
+        * (2 * cfg.n_layers)
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
@@ -371,6 +395,29 @@ def test_chip_smoke_moe_phases_run_on_cpu():
     # the teacher-forced forward covers prompt + new - 1 positions
     assert par["forward_positions_compared"] == 21
     assert par["forward_near_ties"] == 0
+
+
+def test_chip_smoke_mm_cases_take_their_route():
+    """chip_smoke.py's B2 cases name the route the wrapper picks: the bf16
+    router on the tensor cores at prefill and split K at decode, its fp32
+    parity copy on the FMA kernel at prefill, and every route checked on
+    the reference's tails."""
+    from repro_torch.kernels.matmul_blocked import _route
+
+    smoke = _smoke()
+    routes = {name: _route(m, k, n, dt)
+              for name, m, k, n, _, dt in smoke.mm_cases()}
+    assert routes["router_m2048_bfloat16"] == "sm90"
+    assert routes["router_m1_bfloat16"] == routes["router_m4_bfloat16"] \
+        == routes["router_m63_bfloat16"] == "splitk"
+    assert routes["router_m64_bfloat16"] == "sm90"
+    assert routes["router_m2048_float32"] == "fma"
+    assert routes["kimi_k2_router_m2048_bfloat16"] == "sm90"
+    assert routes["router_identity_m2048_bfloat16"] == "sm90"
+    for tail in smoke.MM_SPECS:
+        assert {routes[f"{tail}_{s}_bfloat16"] for s in
+                ("128x128x128", "96x64x80", "40x32x200")} == {"sm90",
+                                                              "splitk"}
 
 
 @pytest.mark.parametrize("tie", [5, 0])

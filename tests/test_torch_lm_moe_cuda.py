@@ -1,5 +1,7 @@
-"""The blocked matmul B2 on the card: the kernel against its plain version,
-the wrapper's refusals, and its launches through a MoE prefill and decode.
+"""The blocked matmul B2 on the card: each of its three routes (splitk,
+sm90, fma) against its plain version, bit for bit over two launches, the
+wrapper's refusals, and its launches, by route, through a MoE prefill and
+decode.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference, so it also runs on a machine that
@@ -7,6 +9,8 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_lm_moe_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +18,7 @@ import torch
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.core.epilogue import EpilogueSpec
 from repro_torch.engine import compile_lm
-from repro_torch.kernels.matmul_blocked import (MatmulSchedule,
+from repro_torch.kernels.matmul_blocked import (MatmulSchedule, _route,
                                                 matmul_blocked, matmul_plain,
                                                 pad_operands)
 from repro_torch.kernels.ops import attention_probs, dense_softmax
@@ -70,7 +74,8 @@ def _plain(a, b, spec, n_valid=None, out_dtype=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(SPECS))
 @pytest.mark.parametrize("m,k,n", [(100, 130, 60), (33, 257, 129),
-                                   (4, 1024, 128), (256, 64, 300)])
+                                   (4, 1024, 128), (256, 64, 300),
+                                   (128, 128, 128)])
 def test_kernel_matches_plain(card, dtype, name, m, k, n):
     spec = EpilogueSpec(**SPECS[name])
     # b scaled like a router (0.02 * sqrt(K) per logit) for a softmax, so
@@ -175,3 +180,94 @@ def test_router_launches_per_prefill_and_decode_step(card, name):
     out = sess.generate(toks[:1, :13].numpy(), 4)   # bucket 8 + 5 catch-up
     assert matmul_blocked.launches - before == cfg.n_layers * (1 + 5 + 3)
     assert out.shape == (1, 4) and 0 <= out.min() and out.max() < cfg.vocab
+
+
+ROUTER_K = 7168          # arctic-480b's and kimi-k2's d_model
+U = 2.0 ** -24
+
+
+def _by_route(fn):
+    """fn's result and the launches it made on each route."""
+    before = dict(matmul_blocked.launches_by_route)
+    out = fn()
+    return out, {r: n - before[r]
+                 for r, n in matmul_blocked.launches_by_route.items()
+                 if n != before[r]}
+
+
+@pytest.mark.parametrize("n", [128, 384])
+@pytest.mark.parametrize("m", [1, 4, 16, 63, 64, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_each_route_matches_plain_bit_for_bit_twice(card, dtype, m, n):
+    """arctic-480b's (N = 128) and kimi-k2's (N = 384) routers at decode
+    and prefill row counts on the route the wrapper names: splitk below
+    64 rows, sm90 for bf16 at 64 and more, fma for fp32 there.  Two
+    launches on the same inputs are bit-identical (fixed-order sums)."""
+    a, b = _ab(m, ROUTER_K, n, dtype, card, b_scale=0.02, seed=m)
+    spec = EpilogueSpec(softmax=True)
+    route = _route(m, ROUTER_K, n, dtype)
+    assert route == ("splitk" if m < 64 else
+                     "sm90" if dtype == torch.bfloat16 else "fma")
+    (got, again), launched = _by_route(lambda: [
+        matmul_blocked(a, b, epilogue=spec, out_dtype=torch.float32)
+        for _ in range(2)])
+    torch.cuda.synchronize()
+    assert launched == {route: 2}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, _plain(a, b, spec,
+                                           out_dtype=torch.float32),
+                               **PROB_TOL)
+
+
+@pytest.mark.parametrize("k", [72, 1000, ROUTER_K])
+@pytest.mark.parametrize("n", [64, 128, 200, 256, 384, 512])
+def test_sm90_descriptors_and_k_tails(card, n, k):
+    """The tensor-core route's MN-major b descriptors over one to eight
+    64-column panels (one or two consumers, a ragged last panel at 200),
+    K tails that TMA fills with zeros (72, 1,000), and ragged rows (130):
+    the identity tail within the fp64 bound K * 2^-24 * (|a| @ |b|), the
+    attention tail against plain."""
+    a, b = _ab(130, k, n, torch.bfloat16, card, seed=k + n)
+    got, launched = _by_route(lambda: matmul_blocked(
+        a, b, out_dtype=torch.float32))
+    assert launched == {"sm90": 1}
+    a64, b64 = a.double(), b.double()
+    bound = k * U * (a64.abs() @ b64.abs())
+    torch.cuda.synchronize()
+    assert ((got.double() - a64 @ b64).abs() <= bound).all()
+    spec = EpilogueSpec(**SPECS["attention_tail"])
+    a, b = _ab(130, k, n, torch.bfloat16, card, b_scale=0.02, seed=k)
+    got = matmul_blocked(a, b, epilogue=spec, out_dtype=torch.float32)
+    torch.testing.assert_close(got, _plain(a, b, spec,
+                                           out_dtype=torch.float32),
+                               **PROB_TOL)
+
+
+def test_split_routes_refuse_unaligned_operands(card):
+    """TMA and bulk copies need 16-byte aligned rows: a view that starts
+    mid-row is refused, not sent to another kernel."""
+    a, b = _ab(4, 64, 64, torch.bfloat16, card)
+    off = torch.empty(4 * 64 + 1, dtype=torch.bfloat16, device=card)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        matmul_blocked(off.view(4, 64).copy_(a), b)
+    big = torch.empty(64 * 64 + 1, dtype=torch.bfloat16, device=card)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        matmul_blocked(big.view(64, 64), b)
+
+
+def test_router_routes_per_prefill_and_decode_step(card):
+    """A bf16 MoE model's routers on the card: every prefill launch takes
+    sm90, every decode-step launch splitk."""
+    cfg = dataclasses.replace(reduced(ARCHS["arctic-480b"]),
+                              dtype="bfloat16")
+    params = TM.params_to(TM.init_params(cfg, seed=0, device="cpu"), card)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(2, 40))).to(card)          # 80 rows >= 64
+    (cache, logits), launched = _by_route(
+        lambda: TM.prefill(params, cfg, toks, max_len=48))
+    assert launched == {"sm90": cfg.n_layers}
+    _, launched = _by_route(lambda: TM.decode_step(
+        params, cfg, toks[:, :1], cache, 40))
+    torch.cuda.synchronize()
+    assert launched == {"splitk": cfg.n_layers}
+    assert torch.isfinite(logits).all()

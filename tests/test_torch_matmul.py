@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.core.epilogue import EpilogueSpec as REpilogueSpec
 from repro.core.epilogue import apply_matmul_epilogue as r_apply
@@ -29,7 +30,8 @@ from repro.kernels.ops import dense_softmax as r_dense_softmax
 from repro_torch.core.epilogue import (IDENTITY, NEG_INF, EpilogueSpec,
                                        apply_matmul_epilogue)
 from repro_torch.kernels import attention_probs, dense_softmax
-from repro_torch.kernels.matmul_blocked import (MatmulSchedule,
+from repro_torch.kernels import build
+from repro_torch.kernels.matmul_blocked import (MatmulSchedule, _route,
                                                 matmul_blocked,
                                                 matmul_padded, matmul_plain,
                                                 pad_operands)
@@ -157,6 +159,30 @@ def test_dense_softmax_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("m,k,n", [(1, 64, 8), (18, 64, 8), (100, 130, 60)])
+def test_dense_softmax_on_bf16_operands_with_fp32_out(m, k, n):
+    """The bf16 model's router: bf16 operands, fp32 probabilities.  The
+    plain version upcasts each k block, so the result is bit for bit that
+    of the call on fp32 copies (what the router passed before), and it
+    agrees with the reference's router, softmax(x.astype(f32) @
+    w.astype(f32)), on the same bf16 values within TOL."""
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)
+                         ).bfloat16()
+    w = torch.from_numpy(rng.normal(0, 0.02 * 8, size=(k, n)).astype(
+        np.float32)).bfloat16()
+    got = dense_softmax(x, w, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.equal(got, dense_softmax(x.float(), w.float()))
+    xr = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    wr = jnp.asarray(w.float().numpy()).astype(jnp.bfloat16)
+    want = jax.nn.softmax(xr.astype(jnp.float32) @ wr.astype(jnp.float32),
+                          axis=-1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # without out_dtype the output keeps the operands' type
+    assert dense_softmax(x, w).dtype == torch.bfloat16
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_probs_matches_reference(causal):
     """Scale defaults to 1/sqrt(D); S = 48 pads to one 128-block."""
@@ -270,3 +296,58 @@ def test_wrapper_routes_cpu_to_plain_and_counts_no_launch():
     assert matmul_blocked.launches == before
     with pytest.raises(ValueError, match="no matmul kernel"):
         matmul_blocked(a.to("meta"), b.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's route rule and the build's key (no card needed)
+# ---------------------------------------------------------------------------
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("m,k,n,dtype,route", [
+    # arctic-480b's router (K = 7,168, 128 experts): decode, prefill
+    (1, 7168, 128, BF, "splitk"), (4, 7168, 128, BF, "splitk"),
+    (63, 7168, 128, BF, "splitk"), (2048, 7168, 128, BF, "sm90"),
+    (64, 7168, 128, BF, "sm90"),
+    # its fp32 parity copy: split K at decode, the FMA kernel at prefill
+    (1, 7168, 128, F32, "splitk"), (2048, 7168, 128, F32, "fma"),
+    # kimi-k2's router (384 experts)
+    (1, 7168, 384, BF, "splitk"), (2048, 7168, 384, BF, "sm90"),
+    # ragged K and N that TMA cannot take, rows that bulk copies cannot
+    (100, 130, 60, BF, "fma"), (33, 257, 129, F32, "fma"),
+    (33, 257, 130, F32, "fma"), (33, 257, 132, F32, "splitk"),
+    # wider than a route holds, longer K than splitk stages
+    (1, 7168, 4096, BF, "fma"), (2048, 7168, 1024, BF, "fma"),
+    (1, 32768, 128, BF, "fma")])
+def test_route_rule(m, k, n, dtype, route):
+    """The wrapper's choice of kernel, made by shape and dtype before any
+    launch."""
+    assert _route(m, k, n, dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_route_refuses_other_dtypes(dtype):
+    with pytest.raises(TypeError, match="share one of"):
+        _route(4, 64, 64, dtype)
+
+
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel's build key hashes its source and every csrc header it
+    includes, directly or through another header: an edited header builds
+    anew instead of loading a stale library."""
+    (tmp_path / "k.cu").write_text('#include <math.h>\n#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text('#pragma once\n#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("int x;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.sources("k")] == ["k.cu", "h.cuh",
+                                                    "g.cuh"]
+    key = build.digest("k")
+    assert build.digest("k") == key
+    (tmp_path / "g.cuh").write_text("int y;\n")
+    assert build.digest("k") != key
+    monkeypatch.undo()
+    for name in ("flash_attention_sm90", "matmul_blocked_sm90",
+                 "matmul_splitk"):
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu",
+                                                         "sm90.cuh"]
