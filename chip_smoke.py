@@ -6,22 +6,27 @@
 Phases, each a function of a device and a size:
 
 1. build      — compile the seven sources of ``src/repro_torch/csrc``
-                (``conv2d_nchwc.cu`` B1; B2's three routes,
+                (``conv2d_nchwc_sm90.cu`` B1; B2's three routes,
                 ``matmul_splitk.cu``, ``matmul_blocked_sm90.cu`` and
                 ``matmul_blocked.cu``; ``flash_attention_sm90.cu`` B3's
                 bf16 route and ``flash_attention.cu`` its fp32 route;
                 ``ssd_chunk.cu`` B4) with nvcc for sm_90a, one nvcc each,
                 all started together, and print ptxas's registers, shared
                 memory and spills (and the sm90 kernels' dynamic shared
-                memory, and B2's cluster sizes at the router's shapes);
+                memory, B1's against its launch plan at every conv of
+                ResNet-50's plan, the stem's recompute factor, and B2's
+                cluster sizes at the router's shapes);
 2. kernels    — B1 against its plain PyTorch version on the card, on every
-                distinct conv of ResNet-50's plan at batch 1 (its planned
-                blocks and epilogues), a DenseNet-style concat-offset store
-                and a ceil-mode avg-pool with asymmetric conv pads;
+                distinct conv of ResNet-50's plan at batch 1 and 8 (its
+                planned blocks and epilogues), a DenseNet-style
+                concat-offset store and a ceil-mode avg-pool with
+                asymmetric conv pads, each case naming the route it took
+                and two launches bit-identical;
 3. main       — ``compile("resnet-50", (1, 3, 224, 224))`` on the card
                 answers 8 batch-1 requests and one batch-8 request; every
-                predict must launch B1 once per conv_block, and the batch-1
-                output must match a CPU session of the same seed and plan;
+                predict must launch B1 once per conv_block, every launch on
+                its sm90 route, and the batch-1 output must match a CPU
+                session of the same seed and plan;
 4. lm_kernels — B2, B3 and B4 against their plain versions on the card:
                 B2 (each case naming its route, two launches bit-identical)
                 at arctic-480b's router shapes (prefill and decode, fp32
@@ -32,7 +37,8 @@ Phases, each a function of a device and a size:
                 padded-operand cases; B3
                 (each case naming the route it took) at qwen2-1.5b's,
                 arctic-480b's and kimi-k2's prefill shapes, plus ragged,
-                windowed, non-causal, MHA, head dim 80 and reduced cases;
+                windowed, non-causal, MHA, head dims 80 and 112 on both
+                routes, and reduced cases;
                 B4 at mamba2-130m's, with slow, steep and no decay;
 5. lm_main    — ``compile("qwen2-1.5b", (1, 2048))`` answers four requests
                 (a full bucket, an exact bucket, a bucket plus 188 catch-up
@@ -50,10 +56,13 @@ Phases, each a function of a device and a size:
                 top-2 margin rule (and, for arctic, the routing margin
                 rule); their fp32 attention must take B3's fma route, and
                 arctic's fp32 router B2's fma and splitk routes only;
-7. times      — per conv: B1, its plain version, cuDNN's conv2d and the
-                roofline bound, with CUDA events; end-to-end predict
-                latency at batch 1 and 8; device time by kernel over
-                batch-1 predicts from a ``torch.profiler`` trace;
+7. times      — per conv of the batch-1 plan: B1 (its route), its plain
+                version and cuDNN's fp32 conv2d, each by the card's time
+                per call from a ``torch.profiler`` trace and by CUDA
+                events, beside two bounds (3xTF32 on the tensor cores and
+                fp32 FMA); end-to-end predict latency at batch 1 and 8;
+                device time by kernel over batch-1 predicts from a
+                ``torch.profiler`` trace;
 8. lm_times   — B3 per prefill bucket and at arctic-480b's and kimi-k2's
                 2,048-token shapes (kernel, plain, SDPA, bound), B4 at
                 mamba2's prefill shapes (kernel, plain, bound), B2 at the
@@ -67,8 +76,17 @@ Phases, each a function of a device and a size:
                 released before arctic-480b's phases, and each phase prints
                 the card's peak allocated memory.
 
-It prints one JSON line per item, the card's ``nvidia-smi`` name and power
-limit, the kernels' summary line, and as its last line
+    python3 chip_smoke.py --latency-only
+
+runs phase 3's session alone: ResNet-50's predict latency at batch 1 and 8
+and its device time per batch-1 predict, one JSON line with the card's
+name and power limit.  Copied into a checkout of another commit, it
+measures that commit's package with the same code: an A/B of two commits
+runs it in both checkouts, in turns, in one call.
+
+Run with no arguments, it prints one JSON line per item, the card's
+``nvidia-smi`` name and power limit, the kernels' summary line, and as its
+last line
 ``{"ok": true, "device": {...}}``.  A failed phase raises and the script
 exits non-zero; without a card, or outside a checkout of the repository, it
 exits non-zero before printing any result.  Full results also go to
@@ -94,15 +112,18 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 MODEL, IMAGE, BIG_BATCH = "resnet-50", 224, 8
-KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc.cu"
-KERNEL_NAMES = ("conv2d_nchwc", "matmul_blocked", "matmul_splitk",
+KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc_sm90.cu"
+KERNEL_NAMES = ("conv2d_nchwc_sm90", "matmul_blocked", "matmul_splitk",
                 "matmul_blocked_sm90", "flash_attention_sm90",
                 "flash_attention", "ssd_chunk")
 PEAK_FP32 = 67e12          # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_TF32 = 495e12         # H100 SXM dense TF32 tensor-core FLOP/s
+TF32_PRODUCTS = 3          # B1's 3xTF32: lo*hi + hi*lo + hi*hi per product
 MEM_BW = 3.35e12           # H100 SXM device-memory bytes/s
 # kernel vs plain on one card: fp32 sums of up to 4,608 terms in another
-# order, on outputs of order 1
+# order, on outputs of order 1 (B1's 3xTF32 products carry ~2^-22 of each
+# product besides)
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # card vs CPU session after 53 convs: the same sums in another order,
 # compounded through the depth of the network.  Random weights drive the
@@ -144,6 +165,8 @@ def phase_build() -> list:
                                                     sm90_smem_bytes as mm_smem)
 
     for out in outs:
+        if out["source"].endswith("conv2d_nchwc_sm90.cu"):
+            out.update(b1_plan_report())
         if out["source"].endswith("flash_attention_sm90.cu"):
             out["dynamic_smem_bytes"] = {d: sm90_smem_bytes(d)
                                          for d in (64, 128, 192, 256)}
@@ -157,6 +180,46 @@ def phase_build() -> list:
                 "splitk", m, ROUTER_K) for m in (1, 4, 63)}
         emit(out)
     return outs
+
+
+def plan_shapes(c) -> tuple:
+    """The padded blocked x shape, the blocked w shape, the stride and the
+    epilogue of a ``plan_convs`` entry: what B1's ``launch_plan`` and
+    ``_route`` take."""
+    wl = c["wl"]
+    x = (wl.batch, wl.in_channels // c["ic_bn"], wl.height + 2 * wl.pad,
+         wl.width + 2 * wl.pw, c["ic_bn"])
+    w = (wl.out_channels // c["oc_bn"], wl.in_channels // c["ic_bn"], wl.kh,
+         wl.kw, c["ic_bn"], c["oc_bn"])
+    return x, w, wl.stride, wl.epilogue_spec()
+
+
+def b1_plan_report() -> dict:
+    """B1's launch plan at every conv of ResNet-50's plan (batch 1 and 8):
+    the dynamic shared memory the kernel computes for it against the
+    wrapper's ``smem_bytes`` (they must agree), and the stem's recompute
+    factor (conv values computed over the layer's, and wgmma rows)."""
+    import ctypes
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.conv2d_nchwc import launch_plan
+
+    query = kbuild.entry("conv2d_nchwc_sm90", "conv2d_sm90_smem",
+                         [ctypes.c_int] * 2)
+    smem, stem = {}, {}
+    for batch in (1, BIG_BATCH):
+        for c in plan_convs(MODEL, batch, IMAGE):
+            plan = launch_plan(*plan_shapes(c))
+            got = query(plan["kt_per"], plan["ch"] * plan["cw"])
+            if got != plan["smem"]:
+                raise RuntimeError(f"B1 {wl_name(c)}: the kernel lays out "
+                                   f"{got} bytes, the plan {plan['smem']}")
+            smem[f"b{batch}_{wl_name(c)}"] = got
+            if c["wl"].fused_pool:
+                stem[f"batch{batch}"] = {
+                    k: plan[k] for k in ("pph", "ppw", "ch", "cw",
+                                         "recompute", "mma_rows")}
+    return {"dynamic_smem_bytes": smem, "stem_recompute": stem}
 
 
 # ---------------------------------------------------------------------------
@@ -263,19 +326,46 @@ def wl_name(c) -> str:
     return c.get("name", name)
 
 
+def b1_route(case) -> str:
+    from repro_torch.kernels.conv2d_nchwc import _route
+
+    return _route(case["x"].shape, case["w"].shape, case["stride"],
+                  case["spec"], case["x"].dtype)
+
+
+def b1_launch(case):
+    """One B1 launch and the routes it took, by ``launches_by_route``."""
+    from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
+
+    before = dict(conv2d_nchwc.launches_by_route)
+    out = run_case(case, plain=False)
+    return out, [r for r, n in conv2d_nchwc.launches_by_route.items()
+                 if n != before[r]]
+
+
 def phase_kernels(device, convs: list) -> float:
-    """Kernel vs plain on every case; returns the largest abs error."""
+    """Kernel vs plain on every case, each on the route ``_route`` names
+    for it and bit-identical over two launches; returns the largest abs
+    error."""
     worst = 0.0
     for c in convs:
         case = make_case(c["wl"], c["ic_bn"], c["oc_bn"], device)
-        got = run_case(case, plain=False)
+        got, routes = b1_launch(case)
+        again, _ = b1_launch(case)
         want = run_case(case, plain=True)
         torch.cuda.synchronize(device)
+        route = b1_route(case)
+        if routes != [route]:
+            raise RuntimeError(f"B1 {wl_name(c)}: took route {routes}, "
+                               f"expected {route}")
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{wl_name(c)}: non-finite kernel output")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"B1 {wl_name(c)}: two launches differ")
         err = float((got - want).abs().max())
         emit({"phase": "kernel_vs_plain", "case": wl_name(c),
-              "max_abs_err": err, **KERNEL_TOL})
+              "batch": c["wl"].batch, "route": route, "max_abs_err": err,
+              "bit_identical": True, **KERNEL_TOL})
         torch.testing.assert_close(got, want, **KERNEL_TOL)
         worst = max(worst, err)
     return worst
@@ -318,6 +408,10 @@ def phase_main(device, image: int = 224, requests: int = 8,
         outs.append(y.cpu().numpy())
     counts = read_counts()
     launches = counts["conv2d_nchwc"]
+    by_route = dict(conv2d_nchwc.launches_by_route)
+    if on_card and by_route != {"sm90": launches}:
+        raise RuntimeError(f"B1 launches by route {by_route}, expected all "
+                           f"{launches} on sm90")
     others = {k: v for k, v in counts.items() if k != "conv2d_nchwc" and v}
     if others:
         raise RuntimeError(f"unexpected kernel launches {others}")
@@ -364,6 +458,7 @@ def phase_main(device, image: int = 224, requests: int = 8,
     out = {"phase": "main", "model": model, "image": image,
            "requests": [1] * requests + [big_batch],
            "conv_blocks": n_blocks, "launches": launches,
+           "launches_by_route": by_route,
            "launches_per_predict": per_predict, "compile_s": compile_s,
            "max_abs_err_vs_cpu": max(errs),
            "max_logit_err_vs_cpu_rel": max(logit_errs), **E2E_TOL,
@@ -389,20 +484,44 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def enqueue_ms(fn, iters: int) -> float:
+    """The host's time per call of ``fn`` over ``iters`` back-to-back calls
+    that end without a synchronize: what a caller's thread spends to launch
+    it (the card drains the queue afterwards)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
 def roofline(case, out: torch.Tensor, wl) -> dict:
-    """The least time of one launch: the larger of its FLOP over the fp32
-    peak and its bytes (each operand read once, the output written once)
-    over the memory rate."""
+    """The least time of one launch, two ways: ``bound_ms`` on the tensor
+    cores, the larger of its 3xTF32 work (three TF32 products for each fp32
+    one) over the dense TF32 peak and its bytes (each operand read once,
+    the output written once) over the memory rate; ``fma_bound_ms`` the
+    same with its fp32 FLOP over the FMA units' peak."""
     flop = wl.flops
     nbytes = 4 * (out.numel() + sum(
         case[k].numel() for k in ("x", "w", "scale", "shift", "residual",
                                   "out_buf") if case[k] is not None))
-    t_op, t_mem = flop / PEAK_FP32 * 1e3, nbytes / MEM_BW * 1e3
+    t_op = TF32_PRODUCTS * flop / PEAK_TF32 * 1e3
+    t_fma, t_mem = flop / PEAK_FP32 * 1e3, nbytes / MEM_BW * 1e3
     return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
-            "bound_by": "operations" if t_op >= t_mem else "bytes"}
+            "bound_by": "operations" if t_op >= t_mem else "bytes",
+            "fma_bound_ms": max(t_fma, t_mem)}
 
 
 def phase_times(device, convs: list, iters: int = 20) -> list:
+    """Per conv: B1 on its route, its plain version and cuDNN's fp32
+    ``F.conv2d`` (TF32 off) on the same values in NCHW, each by the card's
+    time per call from a profiler trace (``device_ms``) and by CUDA events
+    over back-to-back calls (which at the 7x7 and 14x14 layers time the
+    host's enqueue), and the host's enqueue time per call of B1's wrapper
+    (``host_ms``), beside both bounds."""
     import torch.nn.functional as F
 
     rows = []
@@ -410,13 +529,20 @@ def phase_times(device, convs: list, iters: int = 20) -> list:
         case = make_case(c["wl"], c["ic_bn"], c["oc_bn"], device)
         out = run_case(case, plain=False)
 
+        def kernel():
+            return run_case(case, plain=False)
+
         def lib():
             return F.conv2d(case["x_nchw"], case["w_kcrs"], case["shift_vec"],
                             stride=case["stride"], padding=case["pad"])
 
         row = {"phase": "times", "case": wl_name(c), "count": c["count"],
-               "ms": cuda_ms(lambda: run_case(case, plain=False), iters),
+               "route": b1_route(case),
+               "device_ms": _device_busy(kernel, iters)["device_ms"],
+               "ms": cuda_ms(kernel, iters),
+               "host_ms": enqueue_ms(kernel, iters),
                "plain_ms": cuda_ms(lambda: run_case(case, plain=True), iters),
+               "library_device_ms": _device_busy(lib, iters)["device_ms"],
                "library_ms": cuda_ms(lib, iters),
                **roofline(case, out, c["wl"])}
         emit(row)
@@ -542,10 +668,15 @@ def attn_cases() -> list:
               ("window64_d256_s300_bfloat16", 1, 10, 1, 300, 256, True, 64,
                bf),
               # kimi-k2's prefill (64:8 heads, head dim 112) and a head
-              # dim of 80 (stablelm-3b's), which only the sm90 route takes
+              # dim of 80 (stablelm-3b's)
               ("kimi_k2_s2048_d112_bfloat16", 1, 64, 8, 2048, 112, True, 0,
                bf),
               ("mha_d80_s512_bfloat16", 1, 32, 32, 512, 80, True, 0, bf),
+              # the same two head dims on the fp32 route (stablelm-3b's
+              # and kimi-k2's fp32 sessions)
+              ("kimi_k2_s512_d112_float32", 1, 64, 8, 512, 112, True, 0,
+               f32),
+              ("mha_d80_s512_float32", 1, 32, 32, 512, 80, True, 0, f32),
               ("noncausal_s512_float32", 1, 12, 2, 512, 128, False, 0, f32),
               ("mha_d64_s333_float32", 2, 4, 4, 333, 64, True, 0, f32),
               ("reduced_d16_s40_float32", 2, 4, 2, 40, 16, True, 0, f32)]
@@ -1490,6 +1621,22 @@ def memory_line(after: str, device) -> dict:
     return out
 
 
+def latency_only(device, smi: str) -> int:
+    """ResNet-50's batch-1 and batch-8 predict latency (median ms) and the
+    device time and idle share of a batch-1 predict, one JSON line."""
+    from repro_torch.engine import compile
+
+    session = compile(MODEL, (1, 3, IMAGE, IMAGE), seed=0, device=device)
+    lat = {b: phase_latency(session, device, IMAGE, b, it)["median_ms"]
+           for b, it in ((1, 20), (BIG_BATCH, 10))}
+    prof = phase_profile(session, device, IMAGE)
+    emit({"phase": "latency_only", "card": smi, "tree": str(ROOT),
+          "median_ms_batch1": lat[1], f"median_ms_batch{BIG_BATCH}":
+          lat[BIG_BATCH], "device_ms_per_predict":
+          prof["device_ms_per_predict"], "idle_share": prof["idle_share"]})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1508,13 +1655,16 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if sys.argv[1:] == ["--latency-only"]:
+        return latency_only(device, smi)
 
     build = phase_build()
     convs = plan_convs(MODEL, 1, IMAGE)
     if sum(c["count"] for c in convs) == 0:
         raise RuntimeError("the plan has no conv_block")
     memory = []
-    worst = phase_kernels(device, convs + extra_cases())
+    worst = phase_kernels(device, convs + plan_convs(MODEL, BIG_BATCH, IMAGE)
+                          + extra_cases())
     memory.append(memory_line("kernels", device))
     main_run = phase_main(device, IMAGE, big_batch=BIG_BATCH, model=MODEL)
     memory.append(memory_line("main", device))
@@ -1545,19 +1695,31 @@ def main() -> int:
     lm_e2e.append(phase_lm_e2e(lm_runs[ARCTIC], device))
     memory.append(memory_line(f"lm_e2e {ARCTIC}", device))
 
-    def total(key):
-        return sum(r[key] * r["count"] for r in rows)
+    def total(key, fallback):
+        """Sum per batch-1 predict of each conv's ``key`` (a device time)
+        times its count; ``fallback`` (events) where the profiler saw no
+        device time."""
+        return sum((r[key] if isinstance(r[key], float) else r[fallback])
+                   * r["count"] for r in rows)
 
-    t_op = sum(r["flop"] * r["count"] for r in rows) / PEAK_FP32 * 1e3
+    t_op = TF32_PRODUCTS * sum(r["flop"] * r["count"] for r in rows) \
+        / PEAK_TF32 * 1e3
     t_mem = sum(r["bytes"] * r["count"] for r in rows) / MEM_BW * 1e3
-    kernels = [{"name": "conv2d_nchwc", "route": "cuda",
+    # B1: the sum per batch-1 predict over the 53 convs, by the card's time
+    kernels = [{"name": "conv2d_nchwc_sm90", "route": "cuda",
                 "source": KERNEL_SOURCE,
                 "replaces": "src/repro/kernels/conv2d_nchwc.py:177",
                 "launches": main_run["launches"], "max_abs_err": worst,
-                "ms": total("ms"), "plain_ms": total("plain_ms"),
-                "bound_ms": total("bound_ms"),
+                "ms": total("device_ms", "ms"),
+                "plain_ms": sum(r["plain_ms"] * r["count"] for r in rows),
+                "bound_ms": max(t_op, t_mem),
                 "bound_by": "operations" if t_op >= t_mem else "bytes",
-                "library_ms": total("library_ms")}]
+                "library_ms": total("library_device_ms", "library_ms"),
+                "variant": "sm90: 3xTF32 implicit GEMM on wgmma",
+                "ms_events": sum(r["ms"] * r["count"] for r in rows),
+                "host_ms": sum(r["host_ms"] * r["count"] for r in rows),
+                "fma_bound_ms": sum(r["fma_bound_ms"] * r["count"]
+                                    for r in rows)}]
     # B2, B3 and B4: per prefill of the largest bucket (2,048 tokens at
     # batch 1), or for B2's splitk route per batch-1 decode step, i.e. one
     # launch per layer at that shape.  B2's times are the card's own (from

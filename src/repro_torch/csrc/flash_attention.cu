@@ -21,10 +21,13 @@
 // them out through alpha = exp(-1e30 - m) = 0, as in both references.  Tiles
 // wholly above the diagonal or wholly left of the window are skipped, as the
 // Pallas kernel skips them.  K and V tiles of BK rows are staged in shared
-// memory as fp32.  Each query row belongs to TPR = D / 32 neighbouring
-// threads of one warp (one thread when D < 32); each holds an interleaved
-// 32-element slice of q and of the fp32 accumulator in registers, and the
-// partial dot products meet through warp shuffles.  The running max and
+// memory as fp32.  Each query row belongs to TPR neighbouring threads of
+// one warp (D / 32 at D = 64, 128, 256; one thread when D < 64; see
+// threads_per_row); each holds an interleaved slice of E = D / TPR <= 60
+// elements of q and of the fp32 accumulator in registers, and the partial
+// dot products meet through warp shuffles.  Every head dim that is a
+// multiple of 16 up to 256 has its own instantiation, as the sm90 route
+// takes them all.  The running max and
 // denominator are per row, kept by each of its threads.
 //
 // What bounds it on the H100: at qwen2-1.5b's prefill (D = 128, S up to
@@ -46,8 +49,18 @@ constexpr int BK = 32;           // kv rows per shared-memory tile
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
+// Threads per query row: the largest power of two that is at most D / 32
+// and divides D / 4, so that each thread holds whole float4 chunks; any D
+// that is a multiple of 16 then gives E = D / TPR <= 60.
+constexpr int threads_per_row(int d) {
+  int t = 1;
+  while (2 * t * 32 <= d && (d / 4) % (2 * t) == 0) t *= 2;
+  return t;
+}
+
 template <int D> struct Shape {
-  static constexpr int TPR = D >= 32 ? D / 32 : 1;  // threads per query row
+  static_assert(D % 16 == 0 && D >= 16 && D <= 256, "head dim");
+  static constexpr int TPR = threads_per_row(D);     // threads per query row
   static constexpr int E = D / TPR;                  // D elements per thread
   static constexpr int C4 = E / 4;                   // float4 chunks of them
   static constexpr int BQ = 256 / TPR < 64 ? 256 / TPR : 64;  // rows / block
@@ -195,10 +208,13 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
                int hq, int hkv, int s, int d, int causal, int window,
                cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, hq, hkv, s, causal, window, st);
-    case 64: return launch<T, 64>(q, k, v, o, b, hq, hkv, s, causal, window, st);
-    case 128: return launch<T, 128>(q, k, v, o, b, hq, hkv, s, causal, window, st);
-    case 256: return launch<T, 256>(q, k, v, o, b, hq, hkv, s, causal, window, st);
+#define HEAD_DIM(D) \
+  case D: return launch<T, D>(q, k, v, o, b, hq, hkv, s, causal, window, st);
+    HEAD_DIM(16) HEAD_DIM(32) HEAD_DIM(48) HEAD_DIM(64) HEAD_DIM(80)
+    HEAD_DIM(96) HEAD_DIM(112) HEAD_DIM(128) HEAD_DIM(144) HEAD_DIM(160)
+    HEAD_DIM(176) HEAD_DIM(192) HEAD_DIM(208) HEAD_DIM(224) HEAD_DIM(240)
+    HEAD_DIM(256)
+#undef HEAD_DIM
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,7 +14,7 @@ chosen by dtype before any launch (``_route``):
   wgmma on the tensor cores fed by TMA, any D that is a multiple of 16
   from 16 to 256;
 * ``fma`` (fp32): ``csrc/flash_attention.cu`` on the fp32 FMA units,
-  D in (16, 64, 128, 256).
+  the same head dims.
 
 Each source's header says what bounds it on the H100 and what its design
 does about it.  A CPU tensor takes the plain version; a CUDA tensor
@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import build as _build
 
 NEG_INF = -1e30
-HEAD_DIMS = {"sm90": tuple(range(16, 257, 16)), "fma": (16, 64, 128, 256)}
+HEAD_DIMS = {"sm90": tuple(range(16, 257, 16)),
+             "fma": tuple(range(16, 257, 16))}
 _ROUTES = {torch.bfloat16: "sm90", torch.float32: "fma"}
 
 

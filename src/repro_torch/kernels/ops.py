@@ -2,11 +2,13 @@
 matmul tails.
 
 The conv entries consume the NCHW[x]c / KCRS[x]c[y]k tensors the planner
-produces and go through the one conv kernel (``kernels/conv2d_nchwc.py``):
-the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.  Like
-the reference's Pallas path, the port has one loop nest and ignores the
-schedule's ``variant``; the reference's four XLA lowerings and its int8
-forms wait for ROADMAP A3.
+produces and go through the one conv kernel (``kernels/conv2d_nchwc.py``,
+B1): on a CUDA tensor its sm90 route, a 3xTF32 implicit GEMM on the tensor
+cores (``csrc/conv2d_nchwc_sm90.cu``, which replaces the reference's
+``conv2d_nchwc_pallas`` and is bound by its operations), on a CPU tensor
+its plain version.  Like the reference's Pallas path, the port ignores the
+schedule's ``variant`` and tile knobs; the reference's four XLA lowerings
+and its int8 forms wait for ROADMAP A3.
 
 ``dense_softmax`` and ``attention_probs`` are the reference's LM-side
 instantiations of the blocked matmul (``kernels/matmul_blocked.py``, B2):

@@ -1,5 +1,10 @@
 """The port on the card: the conv kernel against its plain version, and the
-launches of a predict.
+launches of a predict.  B1's sm90 route (3xTF32 on wgmma) at every conv of
+ResNet-50's plan at batch 1 and 8 (the stem with its max pool, stride 2,
+the 7x7 layers that split K over a cluster, oc_bn = 512) and at
+``chip_smoke.extra_cases()`` (the concat store, the ceil-mode avg pool
+behind asymmetric pads), two launches bit-identical, and predicts that
+launch only that route.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference, so it also runs on a machine that
@@ -7,6 +12,9 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -119,6 +127,62 @@ def test_predict_on_card_launches_once_per_blocked_conv(card):
     torch.cuda.synchronize()
     assert kmod.conv2d_nchwc.launches - before == n_blocked > 0
     ref = compile("resnet-18", (1, 3, 64, 64), device="cpu")
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               ref.predict(x.cpu()).numpy(), rtol=1e-3,
+                               atol=1e-5)
+
+
+def _smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_sm90_route_at_every_resnet50_plan_conv(card, batch):
+    smoke = _smoke()
+    convs = smoke.plan_convs("resnet-50", batch, 224)
+    names = {smoke.wl_name(c) for c in convs}
+    # the stem with its max pool, stride 2, oc_bn = 512, the 7x7 layers
+    assert {"c3_k64_h224_r7_s2_p3_ic3_oc64_maxpool",
+            "c256_k512_h56_r1_s2_p0_ic256_oc512",
+            "c512_k512_h7_r3_s1_p1_ic32_oc128"} <= names
+    # each on the sm90 route, bit-identical twice, within KERNEL_TOL
+    smoke.phase_kernels(card, convs)
+
+
+def test_sm90_split_k_layers_use_clusters(card):
+    """The 7x7 layers at batch 1 split K over clusters of 4 or 8 and still
+    match plain, bit-identical over two launches."""
+    smoke = _smoke()
+    small = [c for c in smoke.plan_convs("resnet-50", 1, 224)
+             if c["wl"].out_hw == (7, 7)]
+    plans = [kmod.launch_plan(*smoke.plan_shapes(c)) for c in small]
+    assert len(small) == 5 and all(p["cs"] >= 4 for p in plans)
+    smoke.phase_kernels(card, small)
+
+
+@pytest.mark.parametrize("name", ["densenet_concat", "avgpool_ceil_asym"])
+def test_sm90_route_at_the_extra_cases(card, name):
+    smoke = _smoke()
+    smoke.phase_kernels(card, [c for c in smoke.extra_cases()
+                               if c["name"] == name])
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_resnet50_predict_launches_only_the_sm90_route(card, batch):
+    sess = compile("resnet-50", (batch, 3, 64, 64), device=card)
+    plan = sess.plan_for(batch).planned
+    n_blocks = sum(1 for n in plan.graph.topo_order() if n.op == "conv_block")
+    x = torch.randn(batch, 3, 64, 64, device=card)
+    before = kmod.conv2d_nchwc.launches_by_route["sm90"]
+    y = sess.predict(x)
+    torch.cuda.synchronize()
+    assert kmod.conv2d_nchwc.launches_by_route == {
+        "sm90": before + n_blocks} and n_blocks == 53
+    ref = compile("resnet-50", (batch, 3, 64, 64), device="cpu")
     np.testing.assert_allclose(y.cpu().numpy(),
                                ref.predict(x.cpu()).numpy(), rtol=1e-3,
                                atol=1e-5)

@@ -49,9 +49,10 @@ def _qkv(b, hq, hkv, s, d, dtype, device):
 
 
 # (B, Hq, Hkv, S, D, causal, window): each in fp32 (the FMA route) and
-# bf16 (the sm90 route), then bf16 only, where D is not one of the FMA
-# kernel's: kimi-k2's 112 and stablelm-3b's 80, ragged S (700; 129, one row
-# past a q tile), D = 256 with a window, batch 4
+# bf16 (the sm90 route), then bf16 only: kimi-k2's 112 and stablelm-3b's
+# 80, ragged S (700; 129, one row past a q tile), D = 256 with a window,
+# batch 4; and fp32 at 112 and 80, head dims that the FMA route refused
+# until ROADMAP C1 was repaired
 BOTH = [(1, 12, 2, 300, 128, True, 0), (2, 4, 4, 65, 64, False, 0),
         (1, 4, 1, 200, 256, True, 64), (2, 4, 2, 17, 16, True, 0),
         (1, 2, 1, 96, 64, False, 40)]
@@ -59,12 +60,15 @@ BF16_ONLY = [(1, 8, 1, 300, 112, True, 0), (1, 4, 2, 333, 80, True, 0),
              (1, 12, 2, 700, 128, True, 0), (1, 4, 1, 129, 128, True, 0),
              (1, 10, 1, 300, 256, True, 64), (4, 12, 2, 256, 128, True, 0),
              (2, 4, 2, 150, 80, False, 32)]
+FP32_HEAD_DIMS = [(1, 8, 1, 300, 112, True, 0), (1, 4, 2, 333, 80, True, 0),
+                  (2, 4, 2, 150, 80, False, 32)]
 ROUTE = {torch.float32: "fma", torch.bfloat16: "sm90"}
 
 
 @pytest.mark.parametrize("dtype,b,hq,hkv,s,d,causal,window", [
     *[(dt, *c) for c in BOTH for dt in (torch.float32, torch.bfloat16)],
-    *[(torch.bfloat16, *c) for c in BF16_ONLY]])
+    *[(torch.bfloat16, *c) for c in BF16_ONLY],
+    *[(torch.float32, *c) for c in FP32_HEAD_DIMS]])
 def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, s, d, causal,
                                     window):
     q, k, v = _qkv(b, hq, hkv, s, d, dtype, card)
@@ -88,8 +92,8 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take(card):
     with pytest.raises(TypeError, match="share"):
         fa.flash_attention(q, k.double(), v)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
-                           v[..., :48].contiguous())
+        fa.flash_attention(q[..., :40].contiguous(), k[..., :40].contiguous(),
+                           v[..., :40].contiguous())
     q16, k16, v16 = (t[..., :40].bfloat16().contiguous() for t in (q, k, v))
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q16, k16, v16)

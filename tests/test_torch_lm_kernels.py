@@ -134,17 +134,17 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype,d,want", [
     *[(torch.bfloat16, d, "sm90") for d in (16, 80, 112, 128, 256)],
-    *[(torch.float32, d, "fma") for d in (16, 64, 128, 256)]])
+    *[(torch.float32, d, "fma") for d in (16, 64, 80, 112, 128, 256)]])
 def test_route_takes(dtype, d, want):
-    """bf16 goes to the tensor-core kernel at any D that is a multiple of
-    16 up to 256 (kimi-k2's 112, stablelm-3b's 80); fp32 to the FMA
-    kernel at its four head dims."""
+    """Both routes take any D that is a multiple of 16 up to 256
+    (kimi-k2's 112, stablelm-3b's 80): bf16 goes to the tensor-core
+    kernel, fp32 to the FMA kernel."""
     assert fa._route(dtype, d) == want
 
 
 @pytest.mark.parametrize("dtype,d", [
     (torch.bfloat16, 8), (torch.bfloat16, 40), (torch.bfloat16, 264),
-    (torch.float32, 112)])
+    (torch.float32, 40), (torch.float32, 264)])
 def test_route_refuses_head_dim(dtype, d):
     with pytest.raises(ValueError, match="head dim"):
         fa._route(dtype, d)
