@@ -10,12 +10,13 @@ Phases, each a function of a device and a size:
                 ``matmul_splitk.cu``, ``matmul_blocked_sm90.cu`` and
                 ``matmul_blocked.cu``; ``flash_attention_sm90.cu`` B3's
                 bf16 route and ``flash_attention.cu`` its fp32 route;
-                ``ssd_chunk.cu`` B4) with nvcc for sm_90a, one nvcc each,
-                all started together, and print ptxas's registers, shared
-                memory and spills (and the sm90 kernels' dynamic shared
-                memory, B1's against its launch plan at every conv of
-                ResNet-50's plan, the stem's recompute factor, and B2's
-                cluster sizes at the router's shapes);
+                ``ssd_chunk_sm90.cu`` B4) with nvcc for sm_90a, one nvcc
+                each, all started together, and print ptxas's registers,
+                shared memory and spills (and the sm90 kernels' dynamic
+                shared memory, B1's against its launch plan at every conv
+                of ResNet-50's plan, the stem's recompute factor, B2's
+                cluster sizes at the router's shapes, and B4's launch plan
+                at every B4 case);
 2. kernels    — B1 against its plain PyTorch version on the card, on every
                 distinct conv of ResNet-50's plan at batch 1 and 8 (its
                 planned blocks and epilogues), a DenseNet-style
@@ -39,7 +40,8 @@ Phases, each a function of a device and a size:
                 arctic-480b's and kimi-k2's prefill shapes, plus ragged,
                 windowed, non-causal, MHA, head dims 80 and 112 on both
                 routes, and reduced cases;
-                B4 at mamba2-130m's, with slow, steep and no decay;
+                B4 (two launches bit-identical) at mamba2-130m's, with
+                slow, steep, no and overflowing decay, and ragged shapes;
 5. lm_main    — ``compile("qwen2-1.5b", (1, 2048))`` answers four requests
                 (a full bucket, an exact bucket, a bucket plus 188 catch-up
                 steps, decode only) and a batch-4 session one request; B3
@@ -65,11 +67,13 @@ Phases, each a function of a device and a size:
                 ``torch.profiler`` trace;
 8. lm_times   — B3 per prefill bucket and at arctic-480b's and kimi-k2's
                 2,048-token shapes (kernel, plain, SDPA, bound), B4 at
-                mamba2's prefill shapes (kernel, plain, bound), B2 at the
+                mamba2's prefill shapes (kernel by events and by profiler
+                device time, plain, both bounds), B2 at the
                 router shapes in bf16 and fp32 (kernel by events and by
                 profiler device time, plain, bound, and torch's matmul and
                 softmax on fp32 copies and on the bf16 operands); per model
-                prefill ms per bucket, decode ms per
+                prefill ms per bucket and the card's time per
+                full-bucket prefill, decode ms per
                 token, tokens/s at batch 1 and 4, peak device memory, and
                 the card's idle share over a decode loop from a
                 ``torch.profiler`` trace.  The earlier models' sessions are
@@ -83,6 +87,11 @@ and its device time per batch-1 predict, one JSON line with the card's
 name and power limit.  Copied into a checkout of another commit, it
 measures that commit's package with the same code: an A/B of two commits
 runs it in both checkouts, in turns, in one call.
+
+    python3 chip_smoke.py --prefill-only
+
+does the same for mamba2-130m's prefill at full depth: host ms per bucket
+and the card's time per 2,048-token prefill.
 
 Run with no arguments, it prints one JSON line per item, the card's
 ``nvidia-smi`` name and power limit, the kernels' summary line, and as its
@@ -115,11 +124,11 @@ MODEL, IMAGE, BIG_BATCH = "resnet-50", 224, 8
 KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc_sm90.cu"
 KERNEL_NAMES = ("conv2d_nchwc_sm90", "matmul_blocked", "matmul_splitk",
                 "matmul_blocked_sm90", "flash_attention_sm90",
-                "flash_attention", "ssd_chunk")
+                "flash_attention", "ssd_chunk_sm90")
 PEAK_FP32 = 67e12          # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_TF32 = 495e12         # H100 SXM dense TF32 tensor-core FLOP/s
-TF32_PRODUCTS = 3          # B1's 3xTF32: lo*hi + hi*lo + hi*hi per product
+TF32_PRODUCTS = 3          # B1's and B4's 3xTF32: lo*hi + hi*lo + hi*hi
 MEM_BW = 3.35e12           # H100 SXM device-memory bytes/s
 # kernel vs plain on one card: fp32 sums of up to 4,608 terms in another
 # order, on outputs of order 1 (B1's 3xTF32 products carry ~2^-22 of each
@@ -178,6 +187,8 @@ def phase_build() -> list:
         if out["source"].endswith("matmul_splitk.cu"):
             out["cluster_blocks"] = {f"{m}x{ROUTER_K}": cluster_size(
                 "splitk", m, ROUTER_K) for m in (1, 4, 63)}
+        if out["source"].endswith("ssd_chunk_sm90.cu"):
+            out.update(b4_plan_report())
         emit(out)
     return outs
 
@@ -220,6 +231,25 @@ def b1_plan_report() -> dict:
                     k: plan[k] for k in ("pph", "ppw", "ch", "cw",
                                          "recompute", "mma_rows")}
     return {"dynamic_smem_bytes": smem, "stem_recompute": stem}
+
+
+def b4_plan_report() -> dict:
+    """B4's launch plan at every ``ssd_cases`` shape: heads a block, grid,
+    blocks and stages, and the dynamic shared memory the kernel lays out
+    against the plan's (they must agree)."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.ssd_chunk import launch_plan
+
+    got = kbuild.entry("ssd_chunk_sm90", "ssd_intra_smem", [])()
+    plans = {}
+    for name, bcn, h, q, n, p, _ in ssd_cases():
+        plan = launch_plan(bcn, h, q, n, p)
+        if got != plan["smem"]:
+            raise RuntimeError(f"B4 {name}: the kernel lays out {got} "
+                               f"bytes, the plan {plan['smem']}")
+        plans[name] = {k: plan[k] for k in ("heads", "grid", "blocks",
+                                            "stages", "longest")}
+    return {"dynamic_smem_bytes": got, "launch_plans": plans}
 
 
 # ---------------------------------------------------------------------------
@@ -603,15 +633,19 @@ def phase_profile(session, device, image: int, iters: int = 5) -> dict:
 # case reports the largest share of the tolerance it used (gate_share)
 ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
             torch.bfloat16: dict(rtol=2e-2, atol=8e-3)}
-# B4 kernel vs plain: fp32 sums of 128 + 256 terms in another order; the
+# B4 kernel vs plain: fp32 sums of 128 + 256 terms in another order (the
+# kernel's 3xTF32 products carry ~2^-22 of each product besides); the
 # inputs are scaled so that c.b is of order 1 and y at most ~16 (no decay)
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 # B4's per-position log-decay steps -dt*A: "slow" lies in Mamba-2's dt*A
 # range and decays exp(-2.7) at most over a 256-token chunk, so every
 # (row tile, column tile) pair adds well above SSD_TOL; "none" (acum = 0)
 # weighs every column alike; "steep" (mean 0.25 per step) checks the
-# exponent's range but hides columns more than ~40 positions back
-SSD_DECAY = {"slow": (1e-3, 2e-2), "steep": (0.01, 0.5), "none": None}
+# exponent's range but hides columns more than ~40 positions back;
+# "cliff" (mean 0.65 per step) takes acum_i - acum_j past 88 for j > i
+# over a chunk, where exp overflows fp32 unless the mask comes first
+SSD_DECAY = {"slow": (1e-3, 2e-2), "steep": (0.01, 0.5), "none": None,
+             "cliff": (0.3, 1.0)}
 # LM card vs CPU, fp32 at full width and 2 layers: the same sums through
 # the projections (K up to 8,960) and the head, in another order, compared
 # relative to the largest logit
@@ -697,13 +731,17 @@ def attn_inputs(b, hq, hkv, s, d, dtype, device, seed=0):
 def ssd_cases() -> list:
     """(name, BC, H, Q, N, P, decay): mamba2-130m's prefill at 512, 1,024
     and 2,048 tokens with slow decay (the first three, which are timed),
-    its 512-token shape with steep and with no decay, and the reduced
-    config's chunk."""
+    its 512-token shape with steep, no and overflowing decay, 2,048 tokens
+    with 23 heads (a last head group of 3 where the plan takes 4 a block),
+    the reduced config's chunk, and ragged Q, N and P."""
     return [(f"mamba2_bc{bc}_slow", bc, 24, 256, 128, 64, "slow")
             for bc in (2, 4, 8)] \
         + [("mamba2_bc2_steep", 2, 24, 256, 128, 64, "steep"),
            ("mamba2_bc2_nodecay", 2, 24, 256, 128, 64, "none"),
-           ("reduced_q8_slow", 3, 8, 8, 16, 16, "slow")]
+           ("mamba2_bc2_cliff", 2, 24, 256, 128, 64, "cliff"),
+           ("mamba2_bc8_h23_slow", 8, 23, 256, 128, 64, "slow"),
+           ("reduced_q8_slow", 3, 8, 8, 16, 16, "slow"),
+           ("ragged_q100_n20_p40_slow", 1, 3, 100, 20, 40, "slow")]
 
 
 def ssd_inputs(bcn, h, q, n, p, device, decay="slow", seed=0):
@@ -941,26 +979,43 @@ def phase_lm_b3(device) -> float:
     return worst
 
 
-def phase_lm_kernels(device) -> dict:
-    """B2, B3 and B4 against their plain versions; returns the largest abs
-    error of each (B2's by route)."""
-    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+def phase_lm_b4(device) -> float:
+    """B4 against its plain version on every ``ssd_cases`` case, each line
+    naming the plan's heads a block and the share of the tolerance used;
+    two launches must be bit-identical.  Returns the largest abs error."""
+    from repro_torch.kernels.ssd_chunk import (launch_plan, ssd_intra,
+                                               ssd_intra_plain)
 
-    worst = {"matmul_blocked": phase_lm_b2(device),
-             "flash_attention": phase_lm_b3(device), "ssd_intra": 0.0}
+    worst = 0.0
     for name, bcn, h, q, n, p, decay in ssd_cases():
         args = ssd_inputs(bcn, h, q, n, p, device, decay)
         got = ssd_intra(*args)
+        again = ssd_intra(*args)
         want = ssd_intra_plain(*args)
         torch.cuda.synchronize(device)
         if not torch.isfinite(got).all():
             raise RuntimeError(f"B4 {name}: non-finite kernel output")
-        err = float((got - want).abs().max())
+        diff = (got - want).abs()
+        share = float((diff / (SSD_TOL["atol"]
+                               + SSD_TOL["rtol"] * want.abs())).max())
+        err = float(diff.max())
         emit({"phase": "lm_kernel_vs_plain", "kernel": "ssd_intra",
-              "case": name, "max_abs_err": err, **SSD_TOL})
+              "case": name, "heads": launch_plan(bcn, h, q, n, p)["heads"],
+              "max_abs_err": err, "gate_share": share,
+              "max_abs_y": float(want.abs().max()), **SSD_TOL})
         torch.testing.assert_close(got, want, **SSD_TOL)
-        worst["ssd_intra"] = max(worst["ssd_intra"], err)
+        if not torch.equal(got, again):
+            raise RuntimeError(f"B4 {name}: two launches differ")
+        worst = max(worst, err)
     return worst
+
+
+def phase_lm_kernels(device) -> dict:
+    """B2, B3 and B4 against their plain versions; returns the largest abs
+    error of each (B2's by route)."""
+    return {"matmul_blocked": phase_lm_b2(device),
+            "flash_attention": phase_lm_b3(device),
+            "ssd_intra": phase_lm_b4(device)}
 
 
 # ---------------------------------------------------------------------------
@@ -1061,7 +1116,7 @@ LM_KERNEL_ROWS = (
      "src/repro_torch/csrc/flash_attention_sm90.cu",
      "src/repro/kernels/flash_attention.py:84", 2),
     ("ssd_intra", "ssd_intra", None, "mamba2-130m",
-     "src/repro_torch/csrc/ssd_chunk.cu",
+     "src/repro_torch/csrc/ssd_chunk_sm90.cu",
      "src/repro/kernels/ssd_chunk.py:46", 2))
 LM_REQUESTS = ((2048, 1), (1024, 64), (700, 64), (100, 32))
 LM_BIG = (4, 1024, 512, 32)     # batch, max_len, prompt, new tokens
@@ -1354,16 +1409,23 @@ def attn_bound(b, hq, hkv, s, d, dtype) -> dict:
 
 
 def ssd_bound(bcn, h, q, n, p) -> dict:
-    """Least time of one B4 launch: per chunk the C.B scores of the pairs
-    j <= i (shared by the heads, 2N FLOP each), per head and pair the
-    decay (one exp, one multiply) and the product with x (2P FLOP), over
-    the fp32 peak; or the fp32 inputs read and the output written once."""
+    """Least time of one B4 launch, two ways.  The work: per chunk the C.B
+    scores of the pairs j <= i (shared by the heads, 2N FLOP each), per
+    head and pair the product with x (2P FLOP) and the decay (one exp, one
+    multiply); the bytes: the fp32 inputs read and the output written
+    once.  ``bound_ms`` on the tensor cores: the larger of the two
+    products' 3xTF32 work (three TF32 products for each fp32 one) over the
+    dense TF32 peak and the bytes over the memory rate; ``fma_bound_ms``
+    the same with all the FLOP over the FMA units' peak."""
     pairs = q * (q + 1) // 2
-    flop = bcn * pairs * 2 * n + bcn * h * pairs * (2 + 2 * p)
+    mma = bcn * pairs * 2 * n + bcn * h * pairs * 2 * p
+    flop = mma + bcn * h * pairs * 2
     nbytes = 4 * (2 * bcn * q * n + bcn * h * q + 2 * bcn * h * q * p)
-    t_op, t_mem = flop / PEAK_FP32 * 1e3, nbytes / MEM_BW * 1e3
+    t_op = TF32_PRODUCTS * mma / PEAK_TF32 * 1e3
+    t_fma, t_mem = flop / PEAK_FP32 * 1e3, nbytes / MEM_BW * 1e3
     return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
-            "bound_by": "operations" if t_op >= t_mem else "bytes"}
+            "bound_by": "operations" if t_op >= t_mem else "bytes",
+            "fma_bound_ms": max(t_fma, t_mem)}
 
 
 def mm_bound(m, k, n, dtype) -> dict:
@@ -1458,8 +1520,9 @@ def phase_lm_kernel_times(device, iters: int = 10) -> dict:
     arctic-480b's largest one and kimi-k2's (head dim 112), B4 at
     mamba2-130m's (BC = 2, 4, 8) and B2 at arctic-480b's router shapes:
     kernel, plain version, library call (B3: SDPA; B2: torch's matmul and
-    softmax) and bound, each ms with CUDA events; B3's rows also carry the
-    card's time per call for the kernel and SDPA from a profiler trace."""
+    softmax) and bound, each ms with CUDA events; B3's and B4's rows also
+    carry the card's time per call for the kernel (and SDPA, or B4's plain
+    version) from a profiler trace."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -1495,7 +1558,11 @@ def phase_lm_kernel_times(device, iters: int = 10) -> dict:
         row = {"phase": "lm_times", "kernel": "ssd_intra",
                "shape": [bcn, h, q_, n, p], "dtype": "float32",
                "ms": cuda_ms(lambda: ssd_intra(*args), iters),
+               "device_ms": _device_busy(lambda: ssd_intra(*args),
+                                         iters)["device_ms"],
                "plain_ms": cuda_ms(lambda: ssd_intra_plain(*args), iters),
+               "plain_device_ms": _device_busy(
+                   lambda: ssd_intra_plain(*args), iters)["device_ms"],
                "library_ms": None, **ssd_bound(bcn, h, q_, n, p)}
         emit(row)
         rows["ssd_intra"].append(row)
@@ -1543,12 +1610,26 @@ def _host_ms(fn, iters: int) -> list:
     return times
 
 
+def prefill_profile(sess, device, iters: int = 3) -> dict:
+    """The card's time per prefill of the session's largest bucket, from
+    a ``torch.profiler`` trace, with the kernels that take it."""
+    from repro_torch.models.lm.model import prefill
+
+    b = max(sess.seq_buckets)
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, sess.cfg.vocab, size=(1, b))).to(device)
+    prof = _device_busy(lambda: prefill(sess._params, sess.cfg, toks,
+                                        max_len=sess.max_len), iters)
+    return {"tokens": b, **prof}
+
+
 def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
     """One model's end-to-end numbers on the host clock around work that
     ends in a synchronize: prefill ms per bucket, decode ms per token at
     batch 1 and at the batch-4 session, tokens/s, peak device memory of a
     full-bucket prefill plus decode, and the idle share over a decode loop
-    of the batch-1 session."""
+    of the batch-1 session; and the card's time per full-bucket prefill
+    from a profiler trace."""
     from repro_torch.models.lm.model import decode_step, init_cache, prefill
 
     out = {"phase": "lm_e2e", "model": main_run["model"]}
@@ -1563,6 +1644,7 @@ def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
                                      max_len=sess.max_len), 5)
         prefill_ms[str(b)] = statistics.median(t)
     out["prefill_ms"] = prefill_ms
+    out["prefill_profile"] = prefill_profile(sess, device)
     for label, s in (("batch1", sess), ("batch4", big)):
         cache = init_cache(cfg, s.batch, s.max_len, device)
         tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(s.batch, 1))
@@ -1637,6 +1719,31 @@ def latency_only(device, smi: str) -> int:
     return 0
 
 
+def prefill_only(device, smi: str, model: str = "mamba2-130m") -> int:
+    """One LM's prefill at full width and depth (bf16, random weights):
+    host ms per bucket (median of 5) and the card's time per 2,048-token
+    prefill from a profiler trace, one JSON line.  Each kernel builds at
+    its first call, so it runs in a checkout of another commit too."""
+    from repro_torch.engine import compile
+    from repro_torch.models.lm.model import prefill
+
+    sess = compile(model, (1, 2048), seed=0, device=device)
+    rng = np.random.default_rng(9)
+    host = {}
+    for b in sess.seq_buckets:
+        toks = torch.from_numpy(rng.integers(0, sess.cfg.vocab, size=(1, b))
+                                ).to(device)
+        host[str(b)] = statistics.median(_host_ms(
+            lambda: prefill(sess._params, sess.cfg, toks,
+                            max_len=sess.max_len), 5))
+    prof = prefill_profile(sess, device)
+    emit({"phase": "prefill_only", "card": smi, "tree": str(ROOT),
+          "model": model, "prefill_ms": host,
+          "device_ms_per_prefill": prof["device_ms"],
+          "top_ms": prof["top_ms"][:4]})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1657,6 +1764,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     if sys.argv[1:] == ["--latency-only"]:
         return latency_only(device, smi)
+    if sys.argv[1:] == ["--prefill-only"]:
+        return prefill_only(device, smi)
 
     build = phase_build()
     convs = plan_convs(MODEL, 1, IMAGE)
@@ -1722,16 +1831,19 @@ def main() -> int:
                                     for r in rows)}]
     # B2, B3 and B4: per prefill of the largest bucket (2,048 tokens at
     # batch 1), or for B2's splitk route per batch-1 decode step, i.e. one
-    # launch per layer at that shape.  B2's times are the card's own (from
-    # a profiler trace) and its library call the one on its bf16 operands.
+    # launch per layer at that shape.  B2's and B4's times are the card's
+    # own (from a profiler trace), B2's library call the one on its bf16
+    # operands.
     for name, fn, route, model, source, replaces, row in LM_KERNEL_ROWS:
         run = lm_runs[model]
         n = run["n_layers"]
         r = lm_rows[fn][row]
         ms, lib = r["ms"], r["library_ms"]
-        if route is not None:
-            dev, lib_dev = r["device_ms"], r.get("library_bf16_device_ms")
+        if route is not None or fn == "ssd_intra":
+            dev = r["device_ms"]
             ms = dev if isinstance(dev, float) else ms
+        if route is not None:
+            lib_dev = r.get("library_bf16_device_ms")
             lib = lib_dev if isinstance(lib_dev, float) else None
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1745,6 +1857,11 @@ def main() -> int:
         if name == "flash_attention":
             # the main path's B3 is the bf16 route; fp32 takes the FMA one
             kernels[-1]["variant"] = "sm90: wgmma + TMA, bf16"
+        if name == "ssd_intra":
+            kernels[-1].update(
+                variant="sm90: 3xTF32 wgmma, C.B^T scores shared across "
+                        "heads",
+                ms_events=n * r["ms"], fma_bound_ms=n * r["fma_bound_ms"])
     lm_main = [{k: v for k, v in r.items()
                 if k not in ("session", "big_session")}
                for r in lm_runs.values()]

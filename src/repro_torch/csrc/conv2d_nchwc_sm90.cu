@@ -200,45 +200,6 @@ __device__ __forceinline__ float epilogue(const Conv& p, float v,
   return v;
 }
 
-__device__ __forceinline__ float tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
-  return __uint_as_float(r & 0xffffe000u);
-}
-
-// a = hi + lo to ~2^-22 relative, both tf32
-__device__ __forceinline__ void split(const float4& a, float4& hi,
-                                      float4& lo) {
-  hi = make_float4(tf32(a.x), tf32(a.y), tf32(a.z), tf32(a.w));
-  lo = make_float4(tf32(a.x - hi.x), tf32(a.y - hi.y), tf32(a.z - hi.z),
-                   tf32(a.w - hi.w));
-}
-
-// The byte offset of 16-byte chunk q of row r in a tile of 128-byte rows,
-// in TMA's 128-byte swizzle (the tile 1024-byte aligned).
-__device__ __forceinline__ int sw128(int r, int q) {
-  return r * 128 + ((q ^ (r & 7)) << 4);
-}
-
-#define R16 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-
-// d (64 x 32 fp32) = A (64 x 8, smem, K-major) * B (8 x 32, smem, K-major)
-// + (accumulate ? d : 0)
-__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " R16
-      ", %16, %17, p, 1, 1;\n}\n"
-      : F16(d, 0)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 template <int VEC, bool POOL>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_sm90_kernel(const __grid_constant__ Conv p) {

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core and
-// split-K kernels: shared-memory barriers, TMA and bulk copies, wgmma
-// descriptors and fences, thread-block-cluster barriers and distributed
-// shared memory, quad and lane-group reductions, the matmul tail on a row
+// split-K kernels: shared-memory barriers, TMA and bulk copies,
+// wgmma descriptors and fences, thread-block-cluster barriers and
+// distributed shared memory, the 3xTF32 pieces (the tf32 split and the
+// tf32 wgmmas), quad and lane-group reductions, the matmul tail on a row
 // reduced across a cluster, and the host's lookup of the tensor-map
-// encoder.  Included by flash_attention_sm90.cu, matmul_blocked_sm90.cu and
-// matmul_splitk.cu; kernels/build.py hashes it with each of them.
+// encoder.  Included by conv2d_nchwc_sm90.cu, flash_attention_sm90.cu,
+// matmul_blocked_sm90.cu, matmul_splitk.cu and ssd_chunk_sm90.cu;
+// kernels/build.py hashes it with each of them.
 
 #pragma once
 
@@ -200,6 +202,72 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
   "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
   "%124, %125, %126, %127}"
+
+// ---- 3xTF32 ----------------------------------------------------------------
+
+// One TF32 product keeps 11 of fp32's 24 significant bits.  So an fp32
+// operand a is split into hi = tf32(a) and lo = tf32(a - hi), and a product
+// is taken as lo*hi + hi*lo + hi*hi (the dropped lo*lo is ~2^-22 of it).
+
+// cvt.rna: round to nearest, ties away from zero, to tf32's 10 stored bits
+__device__ __forceinline__ float tf32(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(a));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// a = hi + lo to ~2^-22 relative, both tf32
+__device__ __forceinline__ void split(const float4& a, float4& hi,
+                                      float4& lo) {
+  hi = make_float4(tf32(a.x), tf32(a.y), tf32(a.z), tf32(a.w));
+  lo = make_float4(tf32(a.x - hi.x), tf32(a.y - hi.y), tf32(a.z - hi.z),
+                   tf32(a.w - hi.w));
+}
+
+// The byte offset of 16-byte chunk q of row r in a tile of 128-byte rows,
+// in TMA's 128-byte swizzle (the tile 1024-byte aligned): the layout that
+// sw128_desc(tile + 32 * kk, 16, 1024) reads as k step kk of 8 fp32.
+__device__ __forceinline__ int sw128(int r, int q) {
+  return r * 128 + ((q ^ (r & 7)) << 4);
+}
+
+// Shared-memory writes of the threads (the generic proxy) visible to the
+// wgmmas (the async proxy) that follow a barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+#define R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32 fp32) = A (64 x 8, smem, K-major) * B (8 x 32, smem, K-major)
+// + (accumulate ? d : 0), in tf32.  d[4j + e] is row 16 (warp % 4) +
+// lane / 4 (+ 8 for e >= 2), column 8j + 2 (lane % 4) + (e & 1).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " R16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : F16(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 fp32) = A (64 x 8, registers) * B (8 x 64, smem, K-major)
+// + (accumulate ? d : 0), in tf32.  Thread (warp w, lane l) holds A at
+// rows 16 (w % 4) + l / 4 (a[0], a[2]) and + 8 (a[1], a[3]), columns
+// l % 4 (a[0], a[1]) and + 4 (a[2], a[3]).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
 
 // ---- small helpers ---------------------------------------------------------
 

@@ -11,8 +11,9 @@ flash_attention — forward attention with an online softmax, the LM
                   prefill's (B3: bf16 on the tensor cores,
                   ``csrc/flash_attention_sm90.cu``; fp32 on the FMA units,
                   ``csrc/flash_attention.cu``);
-ssd_chunk       — the Mamba-2 SSD intra-chunk block (B4,
-                  ``csrc/ssd_chunk.cu``).
+ssd_chunk       — the Mamba-2 SSD intra-chunk block (B4: 3xTF32 on the
+                  tensor cores, the scores shared across heads,
+                  ``csrc/ssd_chunk_sm90.cu``).
 
 Each CUDA kernel sits beside its plain PyTorch version; build.py compiles
 and loads them; ops.py carries the engine-facing conv entries and the LM's

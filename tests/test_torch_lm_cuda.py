@@ -1,5 +1,7 @@
 """The LM kernels on the card: B3 (both routes) and B4 against their plain
-versions, the wrappers' refusals, and their launches through ``prefill``.
+versions (B4 bit-identical over two launches), the wrappers' refusals, and
+their launches through ``prefill`` (B4 24 times in mamba2-130m's at full
+depth).
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference, so it also runs on a machine that
@@ -109,10 +111,14 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take(card):
         fa.flash_attention(q, k.cpu(), v)
 
 
+# (BC, H, Q, N, P, decay): mamba2-130m's 512-token shape, its 2,048-token
+# one (BC = 8), 23 heads at BC = 8 (the plan takes 4 a block, so the last
+# group has 3), the reduced config's chunk, and ragged Q, N and P
 @pytest.mark.parametrize("bcn,h,q,n,p,decay", [
     (2, 24, 256, 128, 64, "steep"), (2, 24, 256, 128, 64, "slow"),
     (1, 24, 256, 128, 64, "none"), (3, 8, 8, 16, 16, "steep"),
-    (1, 3, 100, 20, 40, "slow")])
+    (1, 3, 100, 20, 40, "slow"), (8, 24, 256, 128, 64, "slow"),
+    (8, 23, 256, 128, 64, "slow")])
 def test_ssd_kernel_matches_plain(card, bcn, h, q, n, p, decay):
     rng = np.random.default_rng(0)
 
@@ -132,6 +138,9 @@ def test_ssd_kernel_matches_plain(card, bcn, h, q, n, p, decay):
     assert sc.ssd_intra.launches == before + 1
     torch.testing.assert_close(got, sc.ssd_intra_plain(*args),
                                **TOL[torch.float32])
+    # no atomics, no order that depends on timing
+    assert torch.equal(sc.ssd_intra(*args), got)
+    assert sc.ssd_intra.launches == before + 2
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_cannot_take(card):
@@ -144,6 +153,23 @@ def test_ssd_wrapper_rejects_what_the_kernel_cannot_take(card):
         sc.ssd_intra(cc, cc[:, :7], acum, xd)
     with pytest.raises(ValueError, match="above the kernel"):
         sc.ssd_intra(cc, cc, acum, torch.zeros((2, 3, 8, 80), device=card))
+    wide = torch.zeros((2, 8, 132), device=card)
+    with pytest.raises(ValueError, match="state dim"):
+        sc.ssd_intra(wide, wide, acum, xd)
+
+
+def test_mamba2_full_depth_prefill_launches_b4_per_layer(card):
+    """mamba2-130m at full width and depth (bf16, random weights): a
+    2,048-token prefill launches B4 once in each of its 24 layers."""
+    cfg = ARCHS["mamba2-130m"]
+    params = TM.init_params(cfg, seed=0, device=card)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(1, 2048))).to(card)
+    before = sc.ssd_intra.launches
+    _, logits = TM.prefill(params, cfg, toks, max_len=2048)
+    torch.cuda.synchronize()
+    assert sc.ssd_intra.launches - before == cfg.n_layers == 24
+    assert torch.isfinite(logits.float()).all()
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "mamba2-130m"])

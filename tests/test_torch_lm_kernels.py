@@ -300,7 +300,8 @@ def test_ssd_other_devices_raise():
 
 @pytest.mark.parametrize("name,symbol", [
     ("flash_attention", "flash_attention_launch"),
-    ("ssd_chunk", "ssd_intra_launch")])
+    pytest.param("ssd_chunk_sm90", "ssd_intra_launch",
+                 id="ssd_chunk-ssd_intra_launch")])
 def test_kernel_sources_ship_with_the_package(name, symbol):
     src = (kbuild.CSRC / f"{name}.cu").read_text()
     assert f'extern "C" int {symbol}' in src
