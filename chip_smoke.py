@@ -21,13 +21,18 @@ Phases, each a function of a device and a size:
                 distinct conv of ResNet-50's plan at batch 1 and 8 (its
                 planned blocks and epilogues), a DenseNet-style
                 concat-offset store and a ceil-mode avg-pool with
-                asymmetric conv pads, each case naming the route it took
-                and two launches bit-identical;
+                asymmetric conv pads, and every distinct conv of the
+                batch-1 plans of the ``ZOO`` networks (VGG-16's pooled
+                convs, DenseNet-121's and Inception-v3's concat stores,
+                Inception's 1x7, 7x1, 1x3, 3x1 and 5x5 taps, SSD's heads
+                as plain conv2d nodes at K = 18,432), each case naming
+                the route it took and two launches bit-identical;
 3. main       — ``compile("resnet-50", (1, 3, 224, 224))`` on the card
                 answers 8 batch-1 requests and one batch-8 request; every
-                predict must launch B1 once per conv_block, every launch on
-                its sm90 route, and the batch-1 output must match a CPU
-                session of the same seed and plan;
+                predict must launch B1 once per conv node, every launch on
+                its sm90 route, and every request's outputs (the batch-8
+                one too) must match a CPU session of the same seed and
+                plan;
 4. lm_kernels — B2, B3 and B4 against their plain versions on the card:
                 B2 (each case naming its route, two launches bit-identical)
                 at arctic-480b's router shapes (prefill and decode, fp32
@@ -63,8 +68,9 @@ Phases, each a function of a device and a size:
                 per call from a ``torch.profiler`` trace and by CUDA
                 events, beside two bounds (3xTF32 on the tensor cores and
                 fp32 FMA); end-to-end predict latency at batch 1 and 8;
-                device time by kernel over batch-1 predicts from a
-                ``torch.profiler`` trace;
+                device time by node group and by kernel over batch-1
+                predicts from a ``torch.profiler`` trace that must hold
+                every B1 launch (as in phase 9);
 8. lm_times   — B3 per prefill bucket and at arctic-480b's and kimi-k2's
                 2,048-token shapes (kernel, plain, SDPA, bound), B4 at
                 mamba2's prefill shapes (kernel by events and by profiler
@@ -76,9 +82,21 @@ Phases, each a function of a device and a size:
                 full-bucket prefill, decode ms per
                 token, tokens/s at batch 1 and 4, peak device memory, and
                 the card's idle share over a decode loop from a
-                ``torch.profiler`` trace.  The earlier models' sessions are
-                released before arctic-480b's phases, and each phase prints
-                the card's peak allocated memory.
+                ``torch.profiler`` trace;
+9. zoo        — phase 3 for vgg-16 at 224, densenet-121 at 224,
+                inception-v3 at 299 and ssd-resnet-50 at 512 (4 batch-1
+                requests and one batch-8 request each, all held to the
+                CPU session's; SSD's two outputs as they are), then one
+                line per network:
+                batch-1 latency, the card's time per predict by node
+                group (B1, layout transforms and pads, concat buffers,
+                BN/ReLU/pools, dense) from a trace that must hold every
+                B1 launch, and its idle share, B1 alone on
+                each distinct conv and cuDNN's fp32 conv2d over the
+                plan's convs, by the card's time, and B1's two bounds.
+                The earlier models' sessions are released before
+                arctic-480b's phases, and each phase prints the card's
+                peak allocated memory.
 
     python3 chip_smoke.py --latency-only
 
@@ -130,9 +148,9 @@ PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_TF32 = 495e12         # H100 SXM dense TF32 tensor-core FLOP/s
 TF32_PRODUCTS = 3          # B1's and B4's 3xTF32: lo*hi + hi*lo + hi*hi
 MEM_BW = 3.35e12           # H100 SXM device-memory bytes/s
-# kernel vs plain on one card: fp32 sums of up to 4,608 terms in another
-# order, on outputs of order 1 (B1's 3xTF32 products carry ~2^-22 of each
-# product besides)
+# kernel vs plain on one card: fp32 sums of up to 18,432 terms (SSD's 3x3
+# heads on the 2,048-channel map) in another order, on outputs of order 1
+# (B1's 3xTF32 products carry ~2^-22 of each product besides)
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)
 # card vs CPU session after 53 convs: the same sums in another order,
 # compounded through the depth of the network.  Random weights drive the
@@ -256,9 +274,14 @@ def b4_plan_report() -> dict:
 # 2. kernels: each distinct conv of the plan, kernel vs plain
 # ---------------------------------------------------------------------------
 
+CONV_OPS = ("conv_block", "conv2d")
+
+
 def plan_convs(model: str, batch: int, image: int) -> list:
     """Distinct (workload, ic_bn, oc_bn) of the port's plan, with their
-    multiplicity in one predict."""
+    multiplicity in one predict.  An unfused ``conv2d`` node (SSD's heads)
+    launches B1 with the identity epilogue and no shift: ``"shift"`` is
+    False for it."""
     from repro_torch.core.pipeline import Pipeline, make_workload
     from repro_torch.models.cnn import build
 
@@ -266,19 +289,22 @@ def plan_convs(model: str, batch: int, image: int) -> list:
     planned = Pipeline.preset("fusion").run(graph, shapes).planned
     convs: dict = {}
     for node in planned.graph.topo_order():
-        if node.op != "conv_block":
+        if node.op not in CONV_OPS:
             continue
         s = planned.schedules[node.name]
         wl = make_workload(node, planned.graph.nodes[node.inputs[0]].shape)
-        key = (wl, s.ic_bn, s.oc_bn)
+        shift = node.op == "conv_block"
+        key = (wl, s.ic_bn, s.oc_bn, shift)
         convs.setdefault(key, {"wl": wl, "ic_bn": s.ic_bn, "oc_bn": s.oc_bn,
-                               "count": 0})["count"] += 1
+                               "shift": shift, "count": 0})["count"] += 1
     return list(convs.values())
 
 
-def make_case(wl, ic_bn: int, oc_bn: int, device, seed: int = 0) -> dict:
-    """Random operands of one conv_block launch, blocked as the plan has
-    them.  The concat buffer is random so the copy-through is checked."""
+def make_case(wl, ic_bn: int, oc_bn: int, device, seed: int = 0,
+              shift: bool = True) -> dict:
+    """Random operands of one B1 launch, blocked as the plan has them (a
+    conv_block's, or with ``shift=False`` a plain conv2d's).  The concat
+    buffer is random so the copy-through is checked."""
     from repro_torch.core.layout import kernel_to_kcrs_ck, to_nchwc
     from repro_torch.kernels.ops import pad_blocked
 
@@ -294,14 +320,14 @@ def make_case(wl, ic_bn: int, oc_bn: int, device, seed: int = 0) -> dict:
     x = t(rng.normal(size=(wl.batch, cin, wl.height, wl.width)))
     w = t(rng.normal(0, np.sqrt(2.0 / (cin * wl.kh * wl.kw)),
                      size=(cout, cin, wl.kh, wl.kw)))
-    shift = t(rng.normal(0, 0.1, size=(cout,)))
+    vec = t(rng.normal(0, 0.1, size=(cout,)))
     case = {
         "spec": spec, "stride": wl.stride, "pad": (wl.pad, wl.pw),
-        "x_nchw": x, "w_kcrs": w, "shift_vec": shift,
+        "x_nchw": x, "w_kcrs": w, "shift_vec": vec,
         "x": pad_blocked(to_nchwc(x, ic_bn), (wl.pad, wl.pw)),
         "w": kernel_to_kcrs_ck(w, ic_bn, oc_bn),
         "scale": None,
-        "shift": shift.reshape(-1, oc_bn).contiguous(),
+        "shift": vec.reshape(-1, oc_bn).contiguous() if shift else None,
         "residual": None, "out_buf": None}
     if wl.fused_residual:
         case["residual"] = to_nchwc(
@@ -353,6 +379,8 @@ def wl_name(c) -> str:
         name += f"_{wl.fused_pool}pool{'c' if wl.pool_ceil else ''}"
     if wl.concat_total:
         name += f"_cat{wl.concat_offset}of{wl.concat_total}"
+    if not c.get("shift", True):
+        name += "_conv2d"
     return c.get("name", name)
 
 
@@ -379,7 +407,8 @@ def phase_kernels(device, convs: list) -> float:
     error."""
     worst = 0.0
     for c in convs:
-        case = make_case(c["wl"], c["ic_bn"], c["oc_bn"], device)
+        case = make_case(c["wl"], c["ic_bn"], c["oc_bn"], device,
+                         shift=c.get("shift", True))
         got, routes = b1_launch(case)
         again, _ = b1_launch(case)
         want = run_case(case, plain=True)
@@ -405,14 +434,34 @@ def phase_kernels(device, convs: list) -> float:
 # 3. main path
 # ---------------------------------------------------------------------------
 
+def with_logits(m):
+    """The same plan and bound weights as the ``CompiledModel`` ``m``, with
+    each softmax's input (the logits) as a further output."""
+    from repro_torch.engine import CompiledModel
+
+    plan = copy.deepcopy(m.plan)
+    graph = plan.planned.graph
+    for o in list(graph.outputs):
+        if graph.nodes[o].op == "softmax":
+            graph.mark_output(graph.nodes[o].inputs[0])
+    return CompiledModel(plan=plan, params=m.params)
+
+
 def phase_main(device, image: int = 224, requests: int = 8,
                big_batch: int = 8, model: str = "resnet-50",
                seed: int = 0) -> dict:
     """The user's path: compile, then answer ``requests`` batch-1 requests
     and one ``big_batch`` request.  Every predict on a CUDA device must
-    launch the conv kernel once per conv_block.  The batch-1 outputs must
-    match a CPU session of the same seed, whose plan must be the same."""
-    from repro_torch.engine import CompiledModel, compile
+    launch the conv kernel once per conv node (conv_block or conv2d), each
+    launch on its sm90 route.  Every output must have the plan's shape and
+    be finite, a softmax output must sum to one.  Every request's outputs
+    (the batch-1 ones and the ``big_batch`` one, whose B1 launches take
+    other launch plans) must match a CPU session of the same seed, whose
+    plan at both batch sizes must be the same: a softmax output to
+    ``E2E_TOL`` with the same top-1 in every row, and to ``LOGIT_TOL`` of
+    the largest its logits (marked as a second output, ``with_logits``)
+    and every other output (SSD's ``loc_cat`` and ``conf_cat``)."""
+    from repro_torch.engine import compile
     from repro_torch.engine.session import _plan_to_json
     from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
 
@@ -422,20 +471,24 @@ def phase_main(device, image: int = 224, requests: int = 8,
     x_big = rng.normal(size=(big_batch, 3, image, image)).astype(np.float32)
     on_card = torch.device(device).type == "cuda"
 
+    def run(m, x, on=device):
+        y = m.predict(torch.from_numpy(x).to(on))
+        return [t.cpu().numpy() for t in (y if isinstance(y, tuple)
+                                          else (y,))]
+
     t0 = time.perf_counter()
     session = compile(model, (1, 3, image, image), seed=seed, device=device)
     compile_s = time.perf_counter() - t0
-    n_blocks = sum(1 for n in session.plan_for(1).planned.graph.topo_order()
-                   if n.op == "conv_block")
+    graph = session.plan_for(1).planned.graph
+    nodes = graph.topo_order()
+    n_blocks = sum(1 for n in nodes if n.op == "conv_block")
+    n_convs = sum(1 for n in nodes if n.op in CONV_OPS)
     reset_counts()
     outs, per_predict = [], []
     for x in xs + [x_big]:
         before = conv2d_nchwc.launches
-        y = session.predict(torch.from_numpy(x).to(device))
-        if on_card:
-            torch.cuda.synchronize(device)
+        outs.append(run(session, x))
         per_predict.append(conv2d_nchwc.launches - before)
-        outs.append(y.cpu().numpy())
     counts = read_counts()
     launches = counts["conv2d_nchwc"]
     by_route = dict(conv2d_nchwc.launches_by_route)
@@ -446,53 +499,71 @@ def phase_main(device, image: int = 224, requests: int = 8,
     if others:
         raise RuntimeError(f"unexpected kernel launches {others}")
 
-    want_launches = n_blocks if on_card else 0
+    want_launches = n_convs if on_card else 0
     if any(n != want_launches for n in per_predict):
         raise RuntimeError(f"kernel launches per predict {per_predict}, "
                            f"expected {want_launches} each")
-    for x, y in zip(xs + [x_big], outs):
-        if y.shape != (x.shape[0], 1000) or not np.isfinite(y).all():
-            raise RuntimeError(f"bad output: shape {y.shape}, "
-                               f"finite {np.isfinite(y).all()}")
-        np.testing.assert_allclose(y.sum(axis=1), 1.0, rtol=1e-5, atol=1e-5)
+    softmax = [graph.nodes[o].op == "softmax" for o in graph.outputs]
+    for x, ys in zip(xs + [x_big], outs):
+        for o, y, sm in zip(graph.outputs, ys, softmax):
+            shape = (x.shape[0],) + tuple(graph.nodes[o].shape[1:])
+            if y.shape != shape or not np.isfinite(y).all():
+                raise RuntimeError(f"bad output {o}: shape {y.shape}, "
+                                   f"expected {shape}, finite "
+                                   f"{np.isfinite(y).all()}")
+            if sm:
+                np.testing.assert_allclose(y.sum(axis=1), 1.0, rtol=1e-5,
+                                           atol=1e-5)
 
     ref = compile(model, (1, 3, image, image), seed=seed, device="cpu")
-    plans = [_plan_to_json(s.plan_for(1)) for s in (session, ref)]
-    for p in plans:
-        p.pop("report")
-    if plans[0] != plans[1]:
-        raise RuntimeError("the card's plan differs from the CPU session's")
+    for batch in (1, big_batch):
+        plans = [_plan_to_json(s.plan_for(batch)) for s in (session, ref)]
+        for p in plans:
+            p.pop("report")
+        if plans[0] != plans[1]:
+            raise RuntimeError(f"the card's plan at batch {batch} differs "
+                               "from the CPU session's")
 
-    def with_logits(m):
-        """The same plan and bound weights, with the classifier's logits
-        as a second output."""
-        plan = copy.deepcopy(m.plan)
-        plan.planned.graph.mark_output("fc")
-        return CompiledModel(plan=plan, params=m.params)
+    n_out = len(graph.outputs)
 
-    card, cpu = with_logits(session.specialize(1)), \
-        with_logits(ref.specialize(1))
-    errs, logit_errs = [], []
-    for x, y in zip(xs, outs):
-        want, want_logits = (t.numpy() for t in cpu.predict(
-            torch.from_numpy(x)))
-        logits = card.predict(torch.from_numpy(x).to(device))[1].cpu().numpy()
-        np.testing.assert_allclose(y, want, **E2E_TOL)
-        scale = float(np.abs(want_logits).max())
-        np.testing.assert_allclose(logits, want_logits, rtol=LOGIT_TOL,
-                                   atol=LOGIT_TOL * scale)
-        if y.argmax() != want.argmax():
-            raise RuntimeError("top-1 class differs from the CPU session")
-        errs.append(float(np.abs(y - want).max()))
-        logit_errs.append(float(np.abs(logits - want_logits).max()) / scale)
+    def check(x, ys, card, cpu) -> tuple:
+        """``ys`` (the card's outputs for ``x``) against the CPU session's,
+        and the logits of both: the largest abs error of a softmax output,
+        and of the rest relative to their largest."""
+        want, got = run(cpu, x, "cpu"), run(card, x)
+        raw = list(zip(got[n_out:], want[n_out:]))
+        err = raw_err = 0.0
+        for y, w, sm in zip(ys, want, softmax):
+            if not sm:
+                raw.append((y, w))
+                continue
+            np.testing.assert_allclose(y, w, **E2E_TOL)
+            if (y.argmax(axis=1) != w.argmax(axis=1)).any():
+                raise RuntimeError("top-1 class differs from the CPU session")
+            err = max(err, float(np.abs(y - w).max()))
+        for g, w in raw:
+            scale = float(np.abs(w).max())
+            np.testing.assert_allclose(g, w, rtol=LOGIT_TOL,
+                                       atol=LOGIT_TOL * scale)
+            raw_err = max(raw_err, float(np.abs(g - w).max()) / scale)
+        return err, raw_err
+
+    pair = [with_logits(s.specialize(1)) for s in (session, ref)]
+    errs = [check(x, ys, *pair) for x, ys in zip(xs, outs)]
+    big_err = check(x_big, outs[-1], *[with_logits(s.specialize(big_batch))
+                                       for s in (session, ref)])
     out = {"phase": "main", "model": model, "image": image,
            "requests": [1] * requests + [big_batch],
-           "conv_blocks": n_blocks, "launches": launches,
-           "launches_by_route": by_route,
+           "conv_blocks": n_blocks, "conv_nodes": n_convs,
+           "launches": launches, "launches_by_route": by_route,
            "launches_per_predict": per_predict, "compile_s": compile_s,
-           "max_abs_err_vs_cpu": max(errs),
-           "max_logit_err_vs_cpu_rel": max(logit_errs), **E2E_TOL,
-           "logit_tol_rel": LOGIT_TOL}
+           "max_abs_err_vs_cpu": max(e for e, _ in errs) if any(softmax)
+           else None,
+           "max_logit_err_vs_cpu_rel": max(r for _, r in errs),
+           "big_batch_vs_cpu": {
+               "max_abs_err": big_err[0] if any(softmax) else None,
+               "max_logit_err_rel": big_err[1]},
+           **E2E_TOL, "logit_tol_rel": LOGIT_TOL}
     emit(out)
     return {"session": session, **out}
 
@@ -556,7 +627,8 @@ def phase_times(device, convs: list, iters: int = 20) -> list:
 
     rows = []
     for c in convs:
-        case = make_case(c["wl"], c["ic_bn"], c["oc_bn"], device)
+        case = make_case(c["wl"], c["ic_bn"], c["oc_bn"], device,
+                         shift=c.get("shift", True))
         out = run_case(case, plain=False)
 
         def kernel():
@@ -568,7 +640,8 @@ def phase_times(device, convs: list, iters: int = 20) -> list:
 
         row = {"phase": "times", "case": wl_name(c), "count": c["count"],
                "route": b1_route(case),
-               "device_ms": _device_busy(kernel, iters)["device_ms"],
+               "device_ms": _device_busy(kernel, iters, b1=iters)[
+                   "device_ms"],
                "ms": cuda_ms(kernel, iters),
                "host_ms": enqueue_ms(kernel, iters),
                "plain_ms": cuda_ms(lambda: run_case(case, plain=True), iters),
@@ -600,20 +673,184 @@ def phase_latency(session, device, image: int, batch: int,
 
 
 def phase_profile(session, device, image: int, iters: int = 5) -> dict:
-    """Device time by kernel name over batch-1 predicts, from a
-    ``torch.profiler`` trace: what share of a predict each kernel takes and
-    how long the card idles.  The profiler's own host cost inflates the
-    wall time here, so the idle share is an upper bound."""
+    """Device time over batch-1 predicts, from a ``torch.profiler`` trace
+    that holds every B1 launch (``device_ms_by_group``): by node group
+    and by kernel name, and how long the card idles.  The profiler's own
+    host cost inflates the wall time here, so the idle share is an upper
+    bound."""
     x = torch.from_numpy(np.random.default_rng(8).normal(
         size=(1, 3, image, image)).astype(np.float32)).to(device)
-    r = _device_busy(lambda: session.predict(x), iters)
+    n_convs = sum(1 for n in session.plan_for(1).planned.graph.topo_order()
+                  if n.op in CONV_OPS)
+    r = device_ms_by_group(lambda: session.predict(x), iters,
+                           iters * n_convs)
     out = {"phase": "profile", "batch": 1, "iters": iters,
            "wall_ms_per_predict": r["wall_ms"],
            "device_ms_per_predict": r["device_ms"],
-           "idle_share": r["idle_share"],
-           "top_ms_per_predict": r["top_ms"]}
+           "idle_share": 1 - r["device_ms"] / r["wall_ms"],
+           "top_ms_per_predict": r["top_ms"],
+           "device_ms_by_group": r["by_group"],
+           "b1_launches_traced": r["b1_launches"],
+           "launch_gaps": r["launch_gaps"]}
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# zoo: one network of each other family of the paper's Table 2
+# ---------------------------------------------------------------------------
+
+# (model, published resolution), served like ResNet-50 in phase 3
+ZOO = (("vgg-16", 224), ("densenet-121", 224), ("inception-v3", 299),
+       ("ssd-resnet-50", 512))
+ZOO_REQUESTS = 4
+# the executor's node ops, grouped as the zoo line reports their device
+# time ("pad" is the pad of a conv's blocked input, inside its conv node)
+NODE_GROUPS = {"conv_block": "conv", "conv2d": "conv",
+               "layout_transform": "transforms_and_pads",
+               "pad": "transforms_and_pads",
+               "concat": "concat", "concat_alloc": "concat",
+               "batch_norm": "bn_relu_pool", "relu": "bn_relu_pool",
+               "max_pool": "bn_relu_pool", "avg_pool": "bn_relu_pool",
+               "global_avg_pool": "bn_relu_pool", "dense": "dense"}
+B1_KERNEL = "conv_sm90_kernel"       # the __global__ of conv2d_nchwc_sm90.cu
+NODE_RANGE = "node:"
+
+
+@contextlib.contextmanager
+def node_ranges():
+    """While the block runs, each graph node the executor evaluates, and
+    each pad of a conv's blocked input, runs inside a profiler range named
+    ``node:<op>`` (``node:pad`` for the pad)."""
+    from torch.profiler import record_function
+
+    from repro_torch.engine import executor
+    from repro_torch.kernels import ops as kops
+
+    eval_node, pad = executor._eval_node, kops.pad_blocked
+
+    def ranged_eval(node, *args):
+        with record_function(NODE_RANGE + node.op):
+            return eval_node(node, *args)
+
+    def ranged_pad(x, p):
+        with record_function(NODE_RANGE + "pad"):
+            return pad(x, p)
+
+    executor._eval_node, kops.pad_blocked = ranged_eval, ranged_pad
+    try:
+        yield
+    finally:
+        executor._eval_node, kops.pad_blocked = eval_node, pad
+
+
+def device_ms_by_group(fn, iters: int, b1: int) -> dict:
+    """The card's ms per call of ``fn`` by node group, from a
+    ``torch.profiler`` trace under ``node_ranges`` that must hold ``b1``
+    B1 launches (``_profiled``).  B1's launches go through ``ctypes``,
+    outside the profiler's op correlation, so its group ``b1`` is summed
+    by kernel name; every other kernel counts for the innermost ``node:``
+    range around the op that launched it (group ``conv``: a conv node's
+    own torch ops, the bias add of a plain conv2d), and what neither
+    claims is ``unattributed``.  Also the wall ms per call (the ranges'
+    host cost included), the top kernels by device time, the B1 launches
+    the trace holds beside ``b1``, and ``_launch_gaps``."""
+    from torch.autograd import DeviceType
+
+    prof, wall_ms, held, gaps = _profiled(fn, iters, b1, ranged=True)
+    lead = gaps.pop("lead_ids")
+    groups: dict = {"b1": 0.0}
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name.startswith(NODE_RANGE) or e.id in lead:
+                continue                 # a range's span, or a lead kernel
+            ms = e.time_range.elapsed_us() / 1e3 / iters
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            if B1_KERNEL in e.name:
+                groups["b1"] += ms
+            continue
+        ms = sum(k.duration for k in e.kernels
+                 if not k.name.startswith(NODE_RANGE)) / 1e3 / iters
+        if not ms:
+            continue
+        owner = e
+        while owner is not None and not owner.name.startswith(NODE_RANGE):
+            owner = owner.cpu_parent
+        group = "unattributed" if owner is None else NODE_GROUPS.get(
+            owner.name[len(NODE_RANGE):], "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    busy = sum(by_name.values())
+    groups["unattributed"] = groups.get("unattributed", 0.0) + busy - sum(
+        groups.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": busy, "wall_ms": wall_ms, "by_group": groups,
+            "top_ms": [[name[:80], ms] for name, ms in top],
+            "b1_launches": [held, b1], "launch_gaps": gaps}
+
+
+def b1_out(case) -> torch.Tensor:
+    """A meta tensor of the shape B1 returns for ``case``."""
+    from repro_torch.kernels.conv2d_nchwc import _geometry
+
+    shape = _geometry(tuple(case["x"].shape), tuple(case["w"].shape),
+                      case["stride"], case["spec"])[2]
+    return torch.empty(shape, device="meta")
+
+
+def phase_zoo_times(session, image: int, convs: list, device,
+                    iters: int = 5) -> dict:
+    """A zoo network's times at batch 1: predict latency (median of 20 on
+    the host clock around a synchronize); the card's time per predict, in
+    all and by node group (``device_ms_by_group``: a trace of ``iters``
+    predicts that must hold every B1 launch they made), and its idle share;
+    B1 alone on every distinct conv by CUDA events (name, ms a launch,
+    launches a predict; the five largest shares first); cuDNN's fp32
+    ``F.conv2d`` (TF32 off) with bias on every conv of the plan, by the
+    card's time; and B1's two bounds (``roofline``) summed over the plan's
+    convs."""
+    import torch.nn.functional as F
+
+    lat = phase_latency(session, device, image, 1, 20)
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(1, 3, image, image)).astype(np.float32)).to(device)
+    n_convs = sum(c["count"] for c in convs)
+    groups = device_ms_by_group(lambda: session.predict(x), iters,
+                                iters * n_convs)
+    cases = [(make_case(c["wl"], c["ic_bn"], c["oc_bn"], device,
+                        shift=c.get("shift", True)), c) for c in convs]
+    # B1 alone on each distinct conv, by CUDA events over 20 back-to-back
+    # launches: the card's time where a launch outlasts the host's enqueue
+    # (~0.02 ms a call), the enqueue's below that
+    alone = sorted(((wl_name(c), cuda_ms(
+        lambda case=case: run_case(case, plain=False), 20), c["count"])
+        for case, c in cases), key=lambda a: -a[1] * a[2])
+
+    def cudnn():
+        for case, c in cases:
+            for _ in range(c["count"]):
+                F.conv2d(case["x_nchw"], case["w_kcrs"], case["shift_vec"],
+                         stride=case["stride"], padding=case["pad"])
+
+    bounds = [roofline(case, b1_out(case), c["wl"]) for case, c in cases]
+    t_op, t_mem, t_fma = (sum(b[k] * c["count"] for b, c in zip(bounds, convs))
+                          for k in ("flop", "bytes", "fma_bound_ms"))
+    t_op, t_mem = TF32_PRODUCTS * t_op / PEAK_TF32 * 1e3, t_mem / MEM_BW * 1e3
+    dev = groups["device_ms"]
+    return {"distinct_convs": len(convs),
+            "latency_ms_batch1": lat["median_ms"],
+            "device_ms_per_predict": dev,
+            "idle_share": 1 - dev / groups["wall_ms"],
+            "idle_share_unprofiled": 1 - dev / lat["median_ms"],
+            "b1_device_ms": groups["by_group"]["b1"],
+            "device_ms_by_group": groups["by_group"],
+            "b1_launches_traced": groups["b1_launches"],
+            "launch_gaps": groups["launch_gaps"],
+            "b1_slowest_alone_ms_events": alone[:5],
+            "cudnn_device_ms": _device_busy(cudnn, 3)["device_ms"],
+            "b1_bound_ms": max(t_op, t_mem),
+            "b1_bound_by": "operations" if t_op >= t_mem else "bytes",
+            "b1_fma_bound_ms": t_fma, "b1_alone_ms_events": alone}
 
 
 # ---------------------------------------------------------------------------
@@ -1569,25 +1806,89 @@ def phase_lm_kernel_times(device, iters: int = 10) -> dict:
     return rows
 
 
-def _device_busy(fn, iters: int) -> dict:
-    """Wall ms per call and device ms per call (sum of the card's kernel
-    times) over ``iters`` calls under ``torch.profiler``, and the top
-    kernels by device time."""
+# Every trace opens with TRACE_PAD_S of idle host time, then TRACE_LEAD
+# empty kernels that its sums leave out, and closes with TRACE_PAD_S more:
+# the card's times reach a trace mapped onto the host's clock, off by up to
+# 2.1 ms from trace to trace, and the profiler keeps only what falls inside
+# its window; and late in a long run a trace missed the kernels of its
+# first 9 to 14 launches whatever the idle time (PERF.md §6)
+TRACE_PAD_S = 0.05
+TRACE_LEAD = 64
+
+
+def _launch_gaps(prof) -> dict:
+    """What a trace says of its own launches: the kernel launches on the
+    host, where those with no kernel in the trace stand in launch order
+    (the first 20), how many of them come after the ``TRACE_LEAD`` first
+    (``missed``), the correlation ids of those first (``lead_ids``), and
+    the range of (kernel start - launch start) in ms over the launches
+    that have a kernel."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    kernels = {e.id: e for e in events if e.device_type == DeviceType.CUDA}
+    launches = sorted((e for e in events if e.device_type == DeviceType.CPU
+                       and "LaunchKernel" in e.name),
+                      key=lambda e: e.time_range.start)
+    missing = [i for i, e in enumerate(launches) if e.id not in kernels]
+    offs = [kernels[e.id].time_range.start - e.time_range.start
+            for e in launches if e.id in kernels]
+    return {"launches": len(launches), "missing_at": missing[:20],
+            "missed": sum(1 for i in missing if i >= TRACE_LEAD),
+            "lead_ids": {e.id for e in launches[:TRACE_LEAD]},
+            "kernel_minus_launch_ms": [min(offs) / 1e3, max(offs) / 1e3]
+            if offs else None}
+
+
+def _profiled(fn, iters: int, b1: int | None = None, ranged: bool = False):
+    """``iters`` calls of ``fn`` (after one outside the trace) under
+    ``torch.profiler`` (and ``node_ranges`` if ``ranged``), between the
+    idle spans and after the lead kernels above.  Every launch after the
+    lead must have its kernel in the trace, and with ``b1`` the trace
+    must hold that many B1 launches; it is taken up to three times, then
+    this raises.  Returns the profiler, the wall ms per call, the B1
+    launches the trace holds and ``_launch_gaps`` with the number of takes
+    (its ``lead_ids`` the sums leave out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    for take in range(1, 4):
+        with (node_ranges() if ranged else contextlib.nullcontext()), \
+                profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            for _ in range(TRACE_LEAD):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+            time.sleep(TRACE_PAD_S)
+        gaps = {**_launch_gaps(prof), "takes": take}
+        held = sum(1 for e in prof.events() if e.device_type ==
+                   DeviceType.CUDA and B1_KERNEL in e.name)
+        if not gaps["missed"] and (b1 is None or held == b1):
+            return prof, wall_ms, held, gaps
+    gaps.pop("lead_ids")
+    raise RuntimeError(f"a trace of {iters} calls held {held} of {b1} B1 "
+                       f"launches, three times: {gaps}")
+
+
+def _device_busy(fn, iters: int, b1: int | None = None) -> dict:
+    """Wall ms per call and device ms per call (sum of the card's kernel
+    times) over ``iters`` calls under ``torch.profiler`` (``_profiled``;
+    ``b1``: the B1 launches the trace must hold), and the top kernels by
+    device time."""
+    from torch.autograd import DeviceType
+
+    prof, wall_ms, _, gaps = _profiled(fn, iters, b1)
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.id not in gaps["lead_ids"]:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / iters)
     busy = sum(by_name.values())
@@ -1774,6 +2075,9 @@ def main() -> int:
     memory = []
     worst = phase_kernels(device, convs + plan_convs(MODEL, BIG_BATCH, IMAGE)
                           + extra_cases())
+    zoo_convs = {m: plan_convs(m, 1, image) for m, image in ZOO}
+    zoo_worst = phase_kernels(device, [c for cs in zoo_convs.values()
+                                       for c in cs])
     memory.append(memory_line("kernels", device))
     main_run = phase_main(device, IMAGE, big_batch=BIG_BATCH, model=MODEL)
     memory.append(memory_line("main", device))
@@ -1793,6 +2097,22 @@ def main() -> int:
     lm_rows = phase_lm_kernel_times(device)
     lm_e2e = [phase_lm_e2e(lm_runs[m], device) for m in LM_MODELS]
     memory.append(memory_line("times", device))
+    zoo = []
+    for m, image in ZOO:
+        run = phase_main(device, image, requests=ZOO_REQUESTS,
+                         big_batch=BIG_BATCH, model=m)
+        t = phase_zoo_times(run.pop("session"), image, zoo_convs[m], device)
+        zoo.append({"phase": "zoo", "model": m, "image": image, "card": smi,
+                    "conv_nodes": run["conv_nodes"],
+                    "launches": run["launches"],
+                    "max_logit_err_vs_cpu_rel":
+                    run["max_logit_err_vs_cpu_rel"],
+                    "big_batch_vs_cpu": run["big_batch_vs_cpu"], **t})
+        emit({k: v for k, v in zoo[-1].items() if k != "b1_alone_ms_events"})
+        del run, t
+        gc.collect()
+        torch.cuda.empty_cache()
+        memory.append(memory_line(f"zoo {m}", device))
     # release every earlier session before arctic-480b's 55 GB of weights
     for run in [main_run, *lm_runs.values()]:
         run.pop("session")
@@ -1818,7 +2138,8 @@ def main() -> int:
     kernels = [{"name": "conv2d_nchwc_sm90", "route": "cuda",
                 "source": KERNEL_SOURCE,
                 "replaces": "src/repro/kernels/conv2d_nchwc.py:177",
-                "launches": main_run["launches"], "max_abs_err": worst,
+                "launches": main_run["launches"],
+                "max_abs_err": max(worst, zoo_worst),
                 "ms": total("device_ms", "ms"),
                 "plain_ms": sum(r["plain_ms"] * r["count"] for r in rows),
                 "bound_ms": max(t_op, t_mem),
@@ -1828,7 +2149,8 @@ def main() -> int:
                 "ms_events": sum(r["ms"] * r["count"] for r in rows),
                 "host_ms": sum(r["host_ms"] * r["count"] for r in rows),
                 "fma_bound_ms": sum(r["fma_bound_ms"] * r["count"]
-                                    for r in rows)}]
+                                    for r in rows),
+                "zoo_launches": {z["model"]: z["launches"] for z in zoo}}]
     # B2, B3 and B4: per prefill of the largest bucket (2,048 tokens at
     # batch 1), or for B2's splitk route per batch-1 decode step, i.e. one
     # launch per layer at that shape.  B2's and B4's times are the card's
@@ -1869,7 +2191,7 @@ def main() -> int:
               "main": {k: v for k, v in main_run.items() if k != "session"},
               "latency": latency, "profile": profile,
               "lm_main": lm_main, "lm_parity": parity,
-              "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e,
+              "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e, "zoo": zoo,
               "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -179,7 +179,9 @@ class InferenceSession:
 
     def predict(self, x: torch.Tensor):
         """Single-input convenience (the common CNN case); dispatches to
-        the batch-size specialization of ``x``."""
+        the batch-size specialization of ``x``.  Returns the graph's
+        output, or the tuple of its outputs where it has several (SSD's
+        ``loc_cat`` and ``conf_cat``)."""
         return self.specialize(int(x.shape[0])).predict(x)
 
 
@@ -206,7 +208,8 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
                 goes to ``compile_lm`` and returns an ``LMSession``
     input_spec  ``{input_name: NCHW shape}``, or a single NCHW tuple for
                 one-input models (zoo names may omit it for the builder's
-                default resolution); for an LM the ``(batch, max_len)``
+                default resolution: 224, inception-v3's 299,
+                ssd-resnet-50's 512); for an LM the ``(batch, max_len)``
                 token shape
     params      logical parameters on ``device`` (default: ``init_params``
                 drawn from ``seed``, the reference's draws)

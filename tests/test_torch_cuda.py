@@ -186,3 +186,62 @@ def test_resnet50_predict_launches_only_the_sm90_route(card, batch):
     np.testing.assert_allclose(y.cpu().numpy(),
                                ref.predict(x.cpu()).numpy(), rtol=1e-3,
                                atol=1e-5)
+
+
+# the zoo's shapes that ResNet-50 does not reach: (model, image, a test on
+# a plan_convs entry)
+ZOO_CASES = {
+    # SSD's 3x3 heads on the 2,048-channel map: K = 18,432, no epilogue
+    "ssd_head_k18432": ("ssd-resnet-50", 512, lambda c: not c["shift"] and
+                        c["wl"].in_channels * c["wl"].kh * c["wl"].kw
+                        == 18432),
+    # VGG-16's s5c3: the max pool fused, so K (4,608) is never split
+    "vgg16_s5c3_pool": ("vgg-16", 224, lambda c: c["wl"].fused_pool == "max"
+                        and c["wl"].in_channels == 512
+                        and c["wl"].height == 14),
+    "inception_1x7": ("inception-v3", 299,
+                      lambda c: (c["wl"].kh, c["wl"].kw) == (1, 7)),
+    "inception_7x1": ("inception-v3", 299,
+                      lambda c: (c["wl"].kh, c["wl"].kw) == (7, 1)),
+    # the concat store at offset 992 of 1,024 channels (the last layer of
+    # dense blocks 3 and 4)
+    "densenet_concat_992": ("densenet-121", 224,
+                            lambda c: c["wl"].concat_offset == 992),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_CASES))
+def test_sm90_route_at_zoo_plan_convs(card, name):
+    model, image, pick = ZOO_CASES[name]
+    smoke = _smoke()
+    convs = [c for c in smoke.plan_convs(model, 1, image) if pick(c)]
+    assert convs
+    smoke.phase_kernels(card, convs)
+
+
+def test_densenet121_predict_launches_only_the_sm90_route(card):
+    """Every conv of a densenet-121 predict launches B1's sm90 route, and
+    the probabilities and the logits (marked as a second output, since a
+    random network saturates the softmax) match a CPU session's: the
+    logits to 1e-5 of the largest, with the same top-1."""
+    smoke = _smoke()
+    sess = compile("densenet-121", (1, 3, 64, 64), device=card)
+    plan = sess.plan_for(1).planned
+    n_convs = sum(1 for n in plan.graph.topo_order()
+                  if n.op in ("conv_block", "conv2d"))
+    x = torch.randn(1, 3, 64, 64, device=card)
+    before = dict(kmod.conv2d_nchwc.launches_by_route)
+    probs, logits = smoke.with_logits(sess.specialize(1)).predict(x)
+    torch.cuda.synchronize()
+    assert kmod.conv2d_nchwc.launches_by_route == {
+        "sm90": before["sm90"] + n_convs} and n_convs == 120
+    ref = compile("densenet-121", (1, 3, 64, 64), device="cpu")
+    want_p, want_l = (t.numpy() for t in
+                      smoke.with_logits(ref.specialize(1)).predict(x.cpu()))
+    np.testing.assert_allclose(probs.cpu().numpy(), want_p, rtol=1e-3,
+                               atol=1e-5)
+    got_l = logits.cpu().numpy()
+    scale = float(np.abs(want_l).max())
+    np.testing.assert_allclose(got_l, want_l, rtol=smoke.LOGIT_TOL,
+                               atol=smoke.LOGIT_TOL * scale)
+    assert got_l.argmax() == want_l.argmax()

@@ -64,10 +64,15 @@ def test_init_params_bit_equal(model, image, seed):
 
 
 def test_zoo_holds_the_resnets():
-    assert sorted(MODELS) == sorted(f"resnet-{d}"
-                                    for d in (18, 34, 50, 101, 152))
+    """The ResNets among the paper's 15 networks (Table 2), and nothing
+    else: an unknown name raises."""
+    assert sorted(MODELS) == sorted(
+        [f"resnet-{d}" for d in (18, 34, 50, 101, 152)]
+        + [f"vgg-{d}" for d in (11, 13, 16, 19)]
+        + [f"densenet-{d}" for d in (121, 161, 169, 201)]
+        + ["inception-v3", "ssd-resnet-50"])
     with pytest.raises(KeyError):
-        t_build("vgg-11")
+        t_build("vgg-17")
 
 
 @pytest.mark.parametrize("mode", MODES)
