@@ -33,6 +33,19 @@ Phases, each a function of a device and a size:
                 its sm90 route, and every request's outputs (the batch-8
                 one too) must match a CPU session of the same seed and
                 plan;
+   variants   — the reference's other engine path: ResNet-50 and VGG-16 at
+                224, each as two sessions with ``use_kernel=False`` (fp32
+                and ``dtype="int8"``), through phase 3 (4 batch-1 requests
+                and one batch-8 request, one lowering a conv node, no B1
+                launch, every request held to a CPU session of the same
+                plan); one line a session: the plan's count of each
+                lowering (per_tap, tap_stack, scan, patch_gemm; int8
+                tap_stack and patch_gemm), the calls of each, latency,
+                device time per predict and of each lowering's conv nodes
+                beside B1's on the same nodes (the default session's
+                trace) and cuDNN's fp32 conv, the bound conv-weight bytes
+                and, not gated, the int8 logits against the fp32 ones.
+                Between them the four sessions must run all six lowerings;
 4. lm_kernels — B2, B3 and B4 against their plain versions on the card:
                 B2 (each case naming its route, two launches bit-identical)
                 at arctic-480b's router shapes (prefill and decode, fp32
@@ -444,16 +457,54 @@ def with_logits(m):
     for o in list(graph.outputs):
         if graph.nodes[o].op == "softmax":
             graph.mark_output(graph.nodes[o].inputs[0])
-    return CompiledModel(plan=plan, params=m.params)
+    return CompiledModel(plan=plan, params=m.params, use_kernel=m.use_kernel)
+
+
+def plan_variants(plan) -> dict:
+    """The plan's count of each conv lowering, as ``"variant/dtype"``."""
+    p = plan.planned
+    counts: dict = {}
+    for name in plan_conv_names(plan):
+        s = p.schedules[name]
+        key = f"{s.resolved_variant()}/{s.dtype}"
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def plan_conv_names(plan) -> list:
+    """The plan's conv nodes (conv_block or conv2d), in execution order."""
+    return [n.name for n in plan.planned.graph.topo_order()
+            if n.op in CONV_OPS]
+
+
+def lowering_calls() -> dict:
+    from repro_torch.kernels.ops import conv2d_lowered
+
+    return dict(conv2d_lowered.calls)
+
+
+def requests_for(image: int, requests: int, big_batch: int,
+                 seed: int = 0) -> list:
+    """The inputs of ``phase_main``'s requests: ``requests`` batch-1
+    images and one ``big_batch`` batch."""
+    rng = np.random.default_rng(seed + 1)
+    xs = [rng.normal(size=(1, 3, image, image)).astype(np.float32)
+          for _ in range(requests)]
+    return xs + [rng.normal(size=(big_batch, 3, image, image)).astype(
+        np.float32)]
 
 
 def phase_main(device, image: int = 224, requests: int = 8,
                big_batch: int = 8, model: str = "resnet-50",
-               seed: int = 0) -> dict:
+               seed: int = 0, use_kernel: bool = True,
+               dtype: str = "fp32") -> dict:
     """The user's path: compile, then answer ``requests`` batch-1 requests
     and one ``big_batch`` request.  Every predict on a CUDA device must
     launch the conv kernel once per conv node (conv_block or conv2d), each
-    launch on its sm90 route.  Every output must have the plan's shape and
+    launch on its sm90 route, and run no lowering; with
+    ``use_kernel=False`` (and ``dtype``) every predict must run one
+    lowering per conv node and launch the kernel no time.  Every output
+    must have the plan's shape and
     be finite, a softmax output must sum to one.  Every request's outputs
     (the batch-1 ones and the ``big_batch`` one, whose B1 launches take
     other launch plans) must match a CPU session of the same seed, whose
@@ -465,11 +516,9 @@ def phase_main(device, image: int = 224, requests: int = 8,
     from repro_torch.engine.session import _plan_to_json
     from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
 
-    rng = np.random.default_rng(seed + 1)
-    xs = [rng.normal(size=(1, 3, image, image)).astype(np.float32)
-          for _ in range(requests)]
-    x_big = rng.normal(size=(big_batch, 3, image, image)).astype(np.float32)
+    *xs, x_big = requests_for(image, requests, big_batch, seed)
     on_card = torch.device(device).type == "cuda"
+    kw = dict(seed=seed, use_kernel=use_kernel, dtype=dtype)
 
     def run(m, x, on=device):
         y = m.predict(torch.from_numpy(x).to(on))
@@ -477,19 +526,23 @@ def phase_main(device, image: int = 224, requests: int = 8,
                                           else (y,))]
 
     t0 = time.perf_counter()
-    session = compile(model, (1, 3, image, image), seed=seed, device=device)
+    session = compile(model, (1, 3, image, image), device=device, **kw)
     compile_s = time.perf_counter() - t0
     graph = session.plan_for(1).planned.graph
     nodes = graph.topo_order()
     n_blocks = sum(1 for n in nodes if n.op == "conv_block")
     n_convs = sum(1 for n in nodes if n.op in CONV_OPS)
     reset_counts()
-    outs, per_predict = [], []
+    lowered0 = lowering_calls()
+    outs, per_predict, lowered_per_predict = [], [], []
     for x in xs + [x_big]:
-        before = conv2d_nchwc.launches
+        before, low = conv2d_nchwc.launches, sum(lowering_calls().values())
         outs.append(run(session, x))
         per_predict.append(conv2d_nchwc.launches - before)
+        lowered_per_predict.append(sum(lowering_calls().values()) - low)
     counts = read_counts()
+    lowered = {k: v - lowered0[k] for k, v in lowering_calls().items()
+               if v != lowered0[k]}
     launches = counts["conv2d_nchwc"]
     by_route = dict(conv2d_nchwc.launches_by_route)
     if on_card and by_route != {"sm90": launches}:
@@ -499,10 +552,14 @@ def phase_main(device, image: int = 224, requests: int = 8,
     if others:
         raise RuntimeError(f"unexpected kernel launches {others}")
 
-    want_launches = n_convs if on_card else 0
+    want_launches = n_convs if on_card and use_kernel else 0
     if any(n != want_launches for n in per_predict):
         raise RuntimeError(f"kernel launches per predict {per_predict}, "
                            f"expected {want_launches} each")
+    want_lowered = 0 if use_kernel else n_convs
+    if any(n != want_lowered for n in lowered_per_predict):
+        raise RuntimeError(f"lowerings per predict {lowered_per_predict}, "
+                           f"expected {want_lowered} each")
     softmax = [graph.nodes[o].op == "softmax" for o in graph.outputs]
     for x, ys in zip(xs + [x_big], outs):
         for o, y, sm in zip(graph.outputs, ys, softmax):
@@ -515,7 +572,7 @@ def phase_main(device, image: int = 224, requests: int = 8,
                 np.testing.assert_allclose(y.sum(axis=1), 1.0, rtol=1e-5,
                                            atol=1e-5)
 
-    ref = compile(model, (1, 3, image, image), seed=seed, device="cpu")
+    ref = compile(model, (1, 3, image, image), device="cpu", **kw)
     for batch in (1, big_batch):
         plans = [_plan_to_json(s.plan_for(batch)) for s in (session, ref)]
         for p in plans:
@@ -553,10 +610,13 @@ def phase_main(device, image: int = 224, requests: int = 8,
     big_err = check(x_big, outs[-1], *[with_logits(s.specialize(big_batch))
                                        for s in (session, ref)])
     out = {"phase": "main", "model": model, "image": image,
+           "use_kernel": use_kernel, "dtype": dtype,
            "requests": [1] * requests + [big_batch],
            "conv_blocks": n_blocks, "conv_nodes": n_convs,
+           "plan_variants": plan_variants(session.plan_for(1)),
            "launches": launches, "launches_by_route": by_route,
-           "launches_per_predict": per_predict, "compile_s": compile_s,
+           "launches_per_predict": per_predict,
+           "lowering_calls": lowered, "compile_s": compile_s,
            "max_abs_err_vs_cpu": max(e for e, _ in errs) if any(softmax)
            else None,
            "max_logit_err_vs_cpu_rel": max(r for _, r in errs),
@@ -718,19 +778,21 @@ NODE_RANGE = "node:"
 
 
 @contextlib.contextmanager
-def node_ranges():
+def node_ranges(labels: dict | None = None):
     """While the block runs, each graph node the executor evaluates, and
     each pad of a conv's blocked input, runs inside a profiler range named
-    ``node:<op>`` (``node:pad`` for the pad)."""
+    ``node:<op>`` (``node:pad`` for the pad), or ``node:<label>`` for a
+    node that ``labels`` (node name -> label) names."""
     from torch.profiler import record_function
 
     from repro_torch.engine import executor
     from repro_torch.kernels import ops as kops
 
     eval_node, pad = executor._eval_node, kops.pad_blocked
+    labels = labels or {}
 
     def ranged_eval(node, *args):
-        with record_function(NODE_RANGE + node.op):
+        with record_function(NODE_RANGE + labels.get(node.name, node.op)):
             return eval_node(node, *args)
 
     def ranged_pad(x, p):
@@ -744,10 +806,12 @@ def node_ranges():
         executor._eval_node, kops.pad_blocked = eval_node, pad
 
 
-def device_ms_by_group(fn, iters: int, b1: int) -> dict:
+def device_ms_by_group(fn, iters: int, b1: int,
+                       labels: dict | None = None) -> dict:
     """The card's ms per call of ``fn`` by node group, from a
-    ``torch.profiler`` trace under ``node_ranges`` that must hold ``b1``
-    B1 launches (``_profiled``).  B1's launches go through ``ctypes``,
+    ``torch.profiler`` trace under ``node_ranges(labels)`` that must hold
+    ``b1`` B1 launches (``_profiled``); a node that ``labels`` names is
+    its own group, its label.  B1's launches go through ``ctypes``,
     outside the profiler's op correlation, so its group ``b1`` is summed
     by kernel name; every other kernel counts for the innermost ``node:``
     range around the op that launched it (group ``conv``: a conv node's
@@ -757,8 +821,10 @@ def device_ms_by_group(fn, iters: int, b1: int) -> dict:
     the trace holds beside ``b1``, and ``_launch_gaps``."""
     from torch.autograd import DeviceType
 
-    prof, wall_ms, held, gaps = _profiled(fn, iters, b1, ranged=True)
+    labels = labels or {}
+    prof, wall_ms, held, gaps = _profiled(fn, iters, b1, labels)
     lead = gaps.pop("lead_ids")
+    own = set(labels.values())
     groups: dict = {"b1": 0.0}
     by_name: dict = {}
     for e in prof.events():
@@ -777,8 +843,9 @@ def device_ms_by_group(fn, iters: int, b1: int) -> dict:
         owner = e
         while owner is not None and not owner.name.startswith(NODE_RANGE):
             owner = owner.cpu_parent
-        group = "unattributed" if owner is None else NODE_GROUPS.get(
-            owner.name[len(NODE_RANGE):], "other")
+        tag = None if owner is None else owner.name[len(NODE_RANGE):]
+        group = ("unattributed" if tag is None else tag if tag in own
+                 else NODE_GROUPS.get(tag, "other"))
         groups[group] = groups.get(group, 0.0) + ms
     busy = sum(by_name.values())
     groups["unattributed"] = groups.get("unattributed", 0.0) + busy - sum(
@@ -851,6 +918,170 @@ def phase_zoo_times(session, image: int, convs: list, device,
             "b1_bound_ms": max(t_op, t_mem),
             "b1_bound_by": "operations" if t_op >= t_mem else "bytes",
             "b1_fma_bound_ms": t_fma, "b1_alone_ms_events": alone}
+
+
+# ---------------------------------------------------------------------------
+# variants: the reference's other engine path, the lowerings, on the card
+# ---------------------------------------------------------------------------
+
+VARIANT_MODELS = (("resnet-50", 224), ("vgg-16", 224))
+VARIANT_REQUESTS = 4
+
+
+def b1_ms_by_node(session, x, iters: int = 5) -> dict:
+    """B1's time on the card for each conv node of a default session's
+    batch-1 predict, from a profiler trace that holds every launch: the
+    launches of a predict come in the plan's conv order, so the k-th B1
+    kernel of each predict is the k-th conv node's."""
+    from torch.autograd import DeviceType
+
+    names = plan_conv_names(session.plan_for(1))
+    n = len(names)
+    prof, _, _, gaps = _profiled(lambda: session.predict(x), iters,
+                                 b1=iters * n)
+    ks = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and B1_KERNEL in e.name and e.id not in gaps["lead_ids"]),
+                key=lambda e: e.time_range.start)
+    return {name: sum(ks[i * n + j].time_range.elapsed_us()
+                      for i in range(iters)) / 1e3 / iters
+            for j, name in enumerate(names)}
+
+
+def conv_weight_bytes(model) -> int:
+    """Bytes of a bound ``CompiledModel``'s conv weights."""
+    return sum(model.params[n]["w"].nbytes for n in plan_conv_names(
+        model.plan))
+
+
+def phase_variant_times(run: dict, image: int, b1_node_ms: dict, device,
+                        iters: int = 5) -> dict:
+    """A lowering session's times at batch 1: predict latency (median of
+    20 on the host clock around a synchronize); the card's time per
+    predict, in all, by node group, and for each lowering (``variant/dtype``)
+    the card's time of the conv nodes it runs, from a trace of ``iters``
+    predicts under ``node_ranges`` with each conv node labelled by its
+    lowering, which must hold no B1 launch; beside each lowering, B1's
+    time on the same nodes (``b1_node_ms``, from the default session's
+    trace) and cuDNN's fp32 ``F.conv2d`` + bias (TF32 off) on the same
+    convs, by the card's time."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.pipeline import make_workload
+
+    session = run["session"]
+    plan = session.plan_for(1)
+    p = plan.planned
+    labels = {}
+    for name in plan_conv_names(plan):
+        sc = p.schedules[name]
+        labels[name] = f"{sc.resolved_variant()}/{sc.dtype}"
+    lat = phase_latency(session, device, image, 1, 20)
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(1, 3, image, image)).astype(np.float32)).to(device)
+    groups = device_ms_by_group(lambda: session.predict(x), iters, 0, labels)
+    rows = {}
+    for label in sorted(set(labels.values())):
+        nodes = [nm for nm, lb in labels.items() if lb == label]
+        cases: dict = {}
+        for nm in nodes:
+            node = p.graph.nodes[nm]
+            wl = make_workload(node, p.graph.nodes[node.inputs[0]].shape)
+            sc = p.schedules[nm]
+            cases.setdefault(wl, [make_case(wl, sc.ic_bn, sc.oc_bn, device,
+                                            shift=node.op == "conv_block"),
+                                  0])[1] += 1
+
+        def cudnn():
+            for case, count in cases.values():
+                for _ in range(count):
+                    F.conv2d(case["x_nchw"], case["w_kcrs"],
+                             case["shift_vec"], stride=case["stride"],
+                             padding=case["pad"])
+
+        rows[label] = {"nodes": len(nodes),
+                       "device_ms": groups["by_group"].get(label, 0.0),
+                       "b1_device_ms": sum(b1_node_ms[nm] for nm in nodes),
+                       "cudnn_device_ms": _device_busy(cudnn, 3)["device_ms"]}
+        del cases
+    dev = groups["device_ms"]
+    return {"latency_ms_batch1": lat["median_ms"],
+            "device_ms_per_predict": dev,
+            "idle_share_unprofiled": 1 - dev / lat["median_ms"],
+            "device_ms_by_group": groups["by_group"],
+            "b1_launches_traced": groups["b1_launches"],
+            "launch_gaps": groups["launch_gaps"], "by_lowering": rows}
+
+
+def phase_variants(device, smi: str, models=VARIANT_MODELS,
+                   requests: int = VARIANT_REQUESTS,
+                   big_batch: int = BIG_BATCH) -> list:
+    """The reference's other engine path on the card: for each network,
+    two sessions with ``use_kernel=False``, one fp32 and one
+    ``dtype="int8"``, each through ``phase_main`` (``requests`` batch-1
+    requests and one ``big_batch`` request, one lowering a conv node and
+    no B1 launch a predict, every request held to a CPU session of the
+    same plan: logits to ``LOGIT_TOL`` of the largest, equal top-1).  One
+    line a session: the plan's lowerings, the lowering calls, B1's
+    launches (0), its times (``phase_variant_times``) beside B1's on the
+    same nodes of the default session, and, not gated, the int8 session's
+    bound conv-weight bytes and its logits against the fp32 session's.
+    Between them the sessions must run every lowering (the four fp32
+    variants and the two int8 forms)."""
+    from repro_torch.engine import compile
+
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise RuntimeError("TF32 is on: the lowerings' cuBLAS products and "
+                           "cuDNN would round their operands to 10 bits")
+    lines, ran = [], {}
+    for model, image in models:
+        default = compile(model, (1, 3, image, image), seed=0, device=device)
+        x = torch.from_numpy(np.random.default_rng(8).normal(
+            size=(1, 3, image, image)).astype(np.float32)).to(device)
+        b1_node_ms = b1_ms_by_node(default, x)
+        del default
+        runs = {}
+        for dtype in ("fp32", "int8"):
+            runs[dtype] = phase_main(device, image, requests=requests,
+                                     big_batch=big_batch, model=model,
+                                     use_kernel=False, dtype=dtype)
+        wbytes = {d: conv_weight_bytes(r["session"].specialize(1))
+                  for d, r in runs.items()}
+        # the int8 session's logits against the fp32 session's, on the
+        # same requests (not gated: random networks saturate)
+        dev, top1 = 0.0, []
+        for xr in requests_for(image, requests, big_batch):
+            b = xr.shape[0]
+            xt = torch.from_numpy(xr).to(device)
+            f32, i8 = (with_logits(runs[d]["session"].specialize(b))
+                       .predict(xt)[1].cpu().numpy() for d in runs)
+            dev = max(dev, float(np.abs(i8 - f32).max() / np.abs(f32).max()))
+            top1 += list(f32.argmax(axis=1) == i8.argmax(axis=1))
+        for dtype, run in runs.items():
+            for k, v in run["lowering_calls"].items():
+                ran[k] = ran.get(k, 0) + v
+            t = phase_variant_times(run, image, b1_node_ms, device)
+            line = {"phase": "variants", "model": model, "image": image,
+                    "dtype": dtype, "use_kernel": False, "card": smi,
+                    **{k: run[k] for k in (
+                        "requests", "conv_nodes", "plan_variants",
+                        "lowering_calls", "launches",
+                        "max_logit_err_vs_cpu_rel", "big_batch_vs_cpu")},
+                    "conv_weight_bytes": wbytes[dtype], **t}
+            if dtype == "int8":
+                line.update(
+                    conv_weight_bytes_fp32=wbytes["fp32"],
+                    logits_vs_fp32_rel=dev,
+                    top1_agrees_with_fp32=[sum(map(bool, top1)), len(top1)])
+            emit(line)
+            lines.append(line)
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    missing = [k for k in lowering_calls() if not ran.get(k)]
+    if missing:
+        raise RuntimeError(f"no session ran the lowerings {missing}")
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -1840,10 +2071,11 @@ def _launch_gaps(prof) -> dict:
             if offs else None}
 
 
-def _profiled(fn, iters: int, b1: int | None = None, ranged: bool = False):
+def _profiled(fn, iters: int, b1: int | None = None,
+              labels: dict | None = None):
     """``iters`` calls of ``fn`` (after one outside the trace) under
-    ``torch.profiler`` (and ``node_ranges`` if ``ranged``), between the
-    idle spans and after the lead kernels above.  Every launch after the
+    ``torch.profiler`` (and ``node_ranges(labels)`` unless ``labels`` is
+    None), between the idle spans and after the lead kernels above.  Every launch after the
     lead must have its kernel in the trace, and with ``b1`` the trace
     must hold that many B1 launches; it is taken up to three times, then
     this raises.  Returns the profiler, the wall ms per call, the B1
@@ -1855,7 +2087,8 @@ def _profiled(fn, iters: int, b1: int | None = None, ranged: bool = False):
     fn()
     torch.cuda.synchronize()
     for take in range(1, 4):
-        with (node_ranges() if ranged else contextlib.nullcontext()), \
+        with (contextlib.nullcontext() if labels is None
+              else node_ranges(labels)), \
                 profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) as prof:
             time.sleep(TRACE_PAD_S)
@@ -2081,6 +2314,8 @@ def main() -> int:
     memory.append(memory_line("kernels", device))
     main_run = phase_main(device, IMAGE, big_batch=BIG_BATCH, model=MODEL)
     memory.append(memory_line("main", device))
+    variants = phase_variants(device, smi)
+    memory.append(memory_line("variants", device))
     lm_worst = phase_lm_kernels(device)
     memory.append(memory_line("lm_kernels", device))
     lm_runs = {}
@@ -2191,6 +2426,7 @@ def main() -> int:
               "main": {k: v for k, v in main_run.items() if k != "session"},
               "latency": latency, "profile": profile,
               "lm_main": lm_main, "lm_parity": parity,
+              "variants": variants,
               "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e, "zoo": zoo,
               "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"

@@ -33,8 +33,9 @@ of a blocked matmul (``kernels/matmul_blocked.py``, B2), in this order:
     acc = softmax(acc, axis=-1)        # row softmax over the full N extent
     acc = relu(acc)
 
-``pool2d``, ``PoolSpec``, ``EpilogueSpec`` and ``apply_matmul_epilogue``
-are the JAX reference's (``repro/core/epilogue.py``) on torch tensors.
+``pool2d``, ``PoolSpec``, ``EpilogueSpec``, ``apply_matmul_epilogue`` and
+``fold_dequant_scale`` are the JAX reference's (``repro/core/epilogue.py``)
+on torch tensors.
 """
 from __future__ import annotations
 
@@ -210,3 +211,19 @@ def apply_matmul_epilogue(acc: torch.Tensor, spec: EpilogueSpec, *,
     if spec.relu:
         acc = torch.clamp_min(acc, 0.0)
     return acc
+
+
+def fold_dequant_scale(scale: Optional[torch.Tensor],
+                       w_scale: Optional[torch.Tensor]
+                       ) -> Optional[torch.Tensor]:
+    """Fold a per-output-channel weight-dequantize scale into the epilogue's
+    ``scale`` operand, exactly the way BN folding composes at bind time:
+    scales multiply (the affine stage applies their product once), and an
+    absent epilogue scale just becomes the dequant scale.  Shift is
+    untouched: symmetric quantization has no zero-point."""
+    if w_scale is None:
+        return scale
+    w_scale = torch.as_tensor(w_scale, dtype=torch.float32)
+    if scale is None:
+        return w_scale
+    return scale * w_scale.to(scale.device)

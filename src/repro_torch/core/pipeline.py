@@ -61,7 +61,8 @@ MODES = ("nchw", "layout", "transform-elim", "global-search", "fusion")
 TUNINGS = ("roofline", "cached", "measured")
 
 
-def make_workload(node: Node, in_shape: Tuple[int, ...]) -> ConvWorkload:
+def make_workload(node: Node, in_shape: Tuple[int, ...],
+                  quantize: bool = False) -> ConvWorkload:
     a = node.attrs
     n, c, h, w = in_shape
     fused = node.op == "conv_block"
@@ -70,6 +71,11 @@ def make_workload(node: Node, in_shape: Tuple[int, ...]) -> ConvWorkload:
     # always last when present, so a residual exists only past that slot
     n_data = 1 + (1 if concat else 0)
     return ConvWorkload(
+        # int8 eligibility rides the workload so the local search enumerates
+        # (and the database keys) the quantized axis; only conv_block nodes
+        # qualify — the dequant scale travels on the fused epilogue's scale
+        # operand, which a plain conv2d node doesn't carry
+        quantize=quantize and fused,
         batch=n, in_channels=c, out_channels=a["out_channels"],
         height=h, width=w, kh=a["kh"], kw=a["kw"],
         stride=a.get("stride", 1), pad=a.get("pad", 0),
@@ -339,6 +345,7 @@ class PipelineState:
     db: ScheduleDatabase
     machine: MachineModel = H100
     tuning: str = "roofline"            # "roofline" | "cached"
+    quantize: bool = False              # enumerate int8 schedules per conv
     transform_bw: Optional[float] = None
     locals_: Dict[str, LocalSearchResult] = dataclasses.field(
         default_factory=dict)
@@ -407,7 +414,8 @@ class LocalTune(Pass):
         n_before = len(state.db)
         runner = functools.partial(roofline_runner, machine=state.machine)
         for node in state.graph.conv_nodes():
-            wl = make_workload(node, state.graph.nodes[node.inputs[0]].shape)
+            wl = make_workload(node, state.graph.nodes[node.inputs[0]].shape,
+                               quantize=state.quantize)
             state.locals_[node.name] = state.db.search(wl, runner=runner)
         return {"n_convs": len(state.locals_),
                 "n_new_workloads": len(state.db) - n_before,
@@ -558,6 +566,7 @@ class Pipeline:
     def run(self, graph: Graph, input_shapes: Dict[str, Tuple[int, ...]], *,
             db: Optional[ScheduleDatabase] = None,
             tuning: str = "roofline",
+            quantize: bool = False,
             transform_bw: Optional[float] = None,
             machine: MachineModel = H100) -> Plan:
         # transform_bw: bytes/s the executing device moves a layout
@@ -576,7 +585,7 @@ class Pipeline:
         state = PipelineState(graph=graph, input_shapes=dict(input_shapes),
                               db=db if db is not None else ScheduleDatabase(),
                               machine=machine, tuning=tuning,
-                              transform_bw=transform_bw)
+                              quantize=quantize, transform_bw=transform_bw)
         t_start = time.perf_counter()
         pass_reports: List[PassReport] = []
         for p in self.passes:

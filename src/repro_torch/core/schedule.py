@@ -7,8 +7,10 @@ schedule database cross between the two packages unchanged.
 
 The port's conv kernel (``kernels/conv2d_nchwc.py``) takes its layout from
 ``(ic_bn, oc_bn)`` and ignores ``ow_bn``, ``oh_bn``, ``unroll_ker`` and
-``variant``, which are tile knobs of the reference's kernel; the local
-search (``core/local_search.py``) ranks candidate tuples per workload.
+``variant``, which are tile knobs of the reference's kernel; ``variant`` and
+``dtype`` pick the torch-op lowering of ``kernels/ops.py`` when a conv runs
+with ``use_kernel=False``.  The local search (``core/local_search.py``)
+ranks candidate tuples per workload.
 """
 from __future__ import annotations
 

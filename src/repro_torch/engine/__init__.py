@@ -11,9 +11,11 @@ and greedy decode.  ``params_from_numpy`` and ``lm_params_from_numpy``
 from repro_torch.engine.executor import (CompiledModel, bind_params,
                                          compile_model)
 from repro_torch.engine.lm_session import LMSession, compile_lm
-from repro_torch.engine.session import InferenceSession, compile
+from repro_torch.engine.session import (SESSION_DTYPES, InferenceSession,
+                                        compile)
 from repro_torch.engine.weights import lm_params_from_numpy, params_from_numpy
 
-__all__ = ["CompiledModel", "InferenceSession", "LMSession", "bind_params",
+__all__ = ["CompiledModel", "InferenceSession", "LMSession", "SESSION_DTYPES",
+           "bind_params",
            "compile", "compile_lm", "compile_model", "lm_params_from_numpy",
            "params_from_numpy"]

@@ -8,6 +8,10 @@ the executable per batch size on demand.
     session = compile("resnet-50", (1, 3, 224, 224))          # on "cuda"
     y = session.predict(x)
 
+``use_kernel`` (default True) runs every blocked conv on the hand-written
+conv kernel; ``use_kernel=False`` runs each on its schedule's lowering, the
+reference's ``use_pallas=False`` path, which ``dtype="int8"`` sessions need.
+
 The plan and graph JSON codecs are the JAX reference's
 (``repro/engine/session.py``), so a plan made by either package executes
 in the other.  Saving and loading artifacts waits for ROADMAP A6.
@@ -29,6 +33,8 @@ from repro_torch.core.schedule import ConvSchedule
 from repro_torch.core.transform_elim import PlannedGraph
 from repro_torch.engine.executor import CompiledModel, compile_model
 from repro_torch.nn.init import Params, init_params
+
+SESSION_DTYPES = ("fp32", "int8")
 
 if TYPE_CHECKING:
     from repro_torch.engine.lm_session import LMSession
@@ -127,7 +133,16 @@ class InferenceSession:
                  db: Optional[ScheduleDatabase] = None,
                  tuning: str = "roofline",
                  machine: MachineModel = H100,
-                 dispatch: str = "whole") -> None:
+                 dispatch: str = "whole",
+                 dtype: str = "fp32",
+                 use_kernel: bool = True) -> None:
+        if dtype not in SESSION_DTYPES:
+            raise ValueError(f"dtype {dtype!r} not in {SESSION_DTYPES}")
+        if dtype == "int8" and use_kernel:
+            raise ValueError(
+                "dtype='int8' needs use_kernel=False: the conv kernel has "
+                "no int8 instantiation, and int8 schedules run on the "
+                "lowerings")
         self._graph = graph
         self._base_shapes = {k: tuple(v) for k, v in base_shapes.items()}
         self._params = params
@@ -136,6 +151,10 @@ class InferenceSession:
         self.tuning = tuning
         self.machine = machine
         self.dispatch = dispatch
+        # "int8": specializations enumerate quantized schedules; the search
+        # decides per conv, so the bound plan may be mixed-precision
+        self.dtype = dtype
+        self.use_kernel = use_kernel
         self._specialized: Dict[int, CompiledModel] = {}
         # serializes planning/binding: two threads racing on the same new
         # batch size must not double-compile
@@ -168,8 +187,10 @@ class InferenceSession:
                 return m
             plan = self.pipeline.run(
                 self._graph, self._shapes_for(batch), db=self.db,
-                tuning=self.tuning, machine=self.machine)
-            m = compile_model(plan, self._params, dispatch=self.dispatch)
+                tuning=self.tuning, quantize=(self.dtype == "int8"),
+                machine=self.machine)
+            m = compile_model(plan, self._params, dispatch=self.dispatch,
+                              use_kernel=self.use_kernel)
             self._specialized[batch] = m
             return m
 
@@ -200,6 +221,8 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
             seed: int = 0,
             dispatch: str = "whole",
             device="cuda",
+            dtype: str = "fp32",
+            use_kernel: bool = True,
             eager: bool = True) -> Union[InferenceSession, "LMSession"]:
     """Build an :class:`InferenceSession` for a model.
 
@@ -222,6 +245,18 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
     device      where parameters live and the model runs: "cuda" (default)
                 launches the hand-written kernels; "cpu" runs their plain
                 versions
+    dtype       "fp32" (default), or "int8": the search also ranks
+                per-output-channel W8-quantized schedules and picks per
+                conv; weights quantize once at bind time, and the
+                dequantize scale folds into the fused epilogue like a BN
+                scale.  Needs ``use_kernel=False``
+    use_kernel  True (default): every blocked conv on the conv kernel
+                (B1), which ignores the schedule's variant, as the
+                reference's Pallas path does; False: every blocked conv on
+                its schedule's lowering (per_tap, tap_stack, scan,
+                patch_gemm, and the int8 forms) as torch ops, the
+                reference's ``use_pallas=False`` path.  The reference's
+                default is the lowerings; the port's is the kernel
     eager       plan + bind the input_spec's batch size now (default); the
                 session still specializes other batch sizes on demand
     """
@@ -285,7 +320,8 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
     sess = InferenceSession(
         graph=graph, base_shapes=shapes, params=params,
         pipeline=pipeline or Pipeline.preset("fusion"), db=db,
-        tuning=tuning, machine=machine, dispatch=dispatch)
+        tuning=tuning, machine=machine, dispatch=dispatch, dtype=dtype,
+        use_kernel=use_kernel)
     if eager:
         sess.specialize(next(iter(shapes.values()))[0])
     return sess

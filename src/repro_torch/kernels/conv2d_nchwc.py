@@ -91,16 +91,31 @@ def conv2d_nchwc_plain(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
     """The kernel's function as plain PyTorch ops, on any device."""
     spec = epilogue or IDENTITY
     _, _, hp, wp, _ = x_blocked.shape
-    ko, _, kh, kw, _, oc_bn = w_blocked.shape
+    _, _, kh, kw, _, _ = w_blocked.shape
     oh = (hp - kh) // stride + 1
     ow = (wp - kw) // stride + 1
     acc = _acc_per_tap(x_blocked, w_blocked, stride, oh, ow)
+    return epilogue_store(acc, scale, shift, residual, out_buf, spec,
+                          x_blocked.dtype)
+
+
+def epilogue_store(acc: torch.Tensor, scale, shift, residual, out_buf,
+                   spec: EpilogueSpec, dtype: torch.dtype) -> torch.Tensor:
+    """The tail every plain conv shares, this plain version and the
+    lowerings of ``kernels/ops.py``: the fp32 accumulator in (n, oh, ow,
+    ko, oc) order back to the blocked order, the epilogue, the cast to
+    ``dtype``, and for a concat write the buffer with this block's
+    channels stored at its offset (§3.1 concat-aware placement)."""
     acc = acc.permute(0, 3, 1, 2, 4)                 # -> (n, ko, oh, ow, oc)
     out = apply_epilogue_fp32(acc, scale, shift, residual, spec)
-    out = out.to(x_blocked.dtype).contiguous()
+    out = out.to(dtype).contiguous()
     if spec.writes_concat:
-        # §3.1 concat-aware placement: the buffer with this block's channels
-        # written at its offset
+        ko, oc_bn = out.shape[1], out.shape[-1]
+        if out_buf is None:
+            raise ValueError("concat-write epilogue needs out_buf")
+        if spec.concat_offset % oc_bn:
+            raise ValueError(f"oc_bn {oc_bn} straddles the concat offset "
+                             f"{spec.concat_offset}")
         off = spec.concat_offset // oc_bn
         full = out_buf.clone()
         full[:, off:off + ko] = out

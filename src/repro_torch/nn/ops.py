@@ -5,9 +5,9 @@ Every op here runs in whatever physical layout the planner assigned —
 Spatial dims sit at axes (2, 3) in both layouts, so pooling and padding
 share code; channel-pointwise ops (batch-norm scale/shift) broadcast against
 pre-blocked parameters the engine prepared at bind time (§3.2 weight
-pre-transformation).  Blocked convolutions go through the conv kernel
-(``kernels/ops.py``); the rest are plain PyTorch ops, as the reference left
-them to XLA.
+pre-transformation).  Blocked convolutions go through ``kernels/ops.py``
+(the conv kernel, or the schedule's lowering); the rest are plain PyTorch
+ops, as the reference left them to XLA.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.epilogue import EpilogueSpec, pool2d
 from repro_torch.core.layout import Layout, relayout
+from repro_torch.core.schedule import ConvSchedule
 from repro_torch.kernels.ops import conv2d_block_blocked, conv2d_blocked
 
 
@@ -55,13 +56,18 @@ def conv2d_nchw_direct(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
            layout: Layout, *, stride: int = 1, pad=0,
-           groups: int = 1) -> torch.Tensor:
+           groups: int = 1, schedule: Optional[ConvSchedule] = None,
+           use_kernel: bool = True, w_prelaid: bool = False
+           ) -> torch.Tensor:
     """``w`` (and ``b``) arrive pre-transformed for ``layout``:
-    KCRS for NCHW, KCRS[x]c[y]k for blocked."""
+    KCRS for NCHW, KCRS[x]c[y]k for blocked (panel-major when the engine
+    pre-laid a patch_gemm weight, ``w_prelaid``).  A blocked conv runs the
+    conv kernel, or with ``use_kernel=False`` the schedule's lowering."""
     if layout.is_blocked:
         if groups != 1:
             raise ValueError("grouped convs run in NCHW")
-        out = conv2d_blocked(x, w, stride=stride, pad=pad)
+        out = conv2d_blocked(x, w, stride=stride, pad=pad, schedule=schedule,
+                             use_kernel=use_kernel, w_prelaid=w_prelaid)
     else:
         out = conv2d_nchw_direct(x, w, stride=stride, pad=pad, groups=groups)
     if b is not None:   # b pre-shaped (Ko, 1, 1, oc_bn) or (K, 1, 1)
@@ -74,21 +80,27 @@ def conv_block(x: torch.Tensor, w: torch.Tensor,
                residual: Optional[torch.Tensor], layout: Layout, *,
                stride: int = 1, pad=0, groups: int = 1, relu: bool = False,
                epilogue: Optional[EpilogueSpec] = None,
-               out_buf: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out_buf: Optional[torch.Tensor] = None,
+               schedule: Optional[ConvSchedule] = None,
+               use_kernel: bool = True,
+               w_prelaid: bool = False) -> torch.Tensor:
     """Fused CONV + composable epilogue (§3.1 operation fusion): per-channel
     affine (-> residual add) -> ReLU -> fused pooling, optionally stored at a
     channel offset into the shared concat buffer ``out_buf``.  ``w`` arrives
-    pre-transformed for ``layout`` with the BN scale pre-folded in;
-    ``scale``/``shift`` are pre-blocked per-channel vectors —
-    ``(Ko, oc_bn)`` blocked, ``(C, 1, 1)`` in NCHW — and ``residual`` is in
-    the conv's own output layout (conv resolution, pre-pool)."""
+    pre-transformed for ``layout`` with the BN scale usually pre-folded in
+    (then ``scale`` is None); ``scale``/``shift`` are pre-blocked
+    per-channel vectors — ``(Ko, oc_bn)`` blocked, ``(C, 1, 1)`` in NCHW —
+    and ``residual`` is in the conv's own output layout (conv resolution,
+    pre-pool).  ``schedule``, ``use_kernel`` and ``w_prelaid`` as for
+    ``conv2d``."""
     spec = (epilogue or EpilogueSpec()).with_relu(relu)
     if layout.is_blocked:
         if groups != 1:
             raise ValueError("grouped convs run in NCHW")
         return conv2d_block_blocked(
             x, w, scale, shift, residual, out_buf, stride=stride, pad=pad,
-            epilogue=spec)
+            epilogue=spec, schedule=schedule, use_kernel=use_kernel,
+            w_prelaid=w_prelaid)
     out = conv2d_nchw_direct(x, w, stride=stride, pad=pad,
                              groups=groups).float()
     if scale is not None:

@@ -1,10 +1,14 @@
-"""The port on the card: the conv kernel against its plain version, and the
+"""The port on the card: the conv kernel against its plain version, the
+conv lowerings (``use_kernel=False``) against their CPU runs, and the
 launches of a predict.  B1's sm90 route (3xTF32 on wgmma) at every conv of
 ResNet-50's plan at batch 1 and 8 (the stem with its max pool, stride 2,
 the 7x7 layers that split K over a cluster, oc_bn = 512) and at
 ``chip_smoke.extra_cases()`` (the concat store, the ceil-mode avg pool
 behind asymmetric pads), two launches bit-identical, and predicts that
-launch only that route.
+launch only that route.  Each fp32 lowering and each int8 form on the card
+against the same torch ops on the CPU; a ``use_kernel=False`` predict (fp32
+and int8) launches the kernel no time, a default predict once per conv and
+no lowering; folded and unfolded BN agree on both paths.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference, so it also runs on a machine that
@@ -20,15 +24,30 @@ import pytest
 import torch
 
 from repro_torch.core.epilogue import EpilogueSpec, PoolSpec
-from repro_torch.core.layout import kernel_to_kcrs_ck, to_nchwc
-from repro_torch.engine import compile
+from repro_torch.core.layout import (kernel_from_kcrs_ck, kernel_to_kcrs_ck,
+                                     to_nchwc)
+from repro_torch.core.quantize import quantize_per_channel
+from repro_torch.core.schedule import INT8_VARIANTS, VARIANTS
+from repro_torch.engine import compile, compile_model
 from repro_torch.kernels import conv2d_nchwc as kmod
-from repro_torch.kernels.ops import pad_blocked
+from repro_torch.kernels.ops import conv2d_lowered, pad_blocked
 
 pytestmark = pytest.mark.cuda
 
 # kernel vs plain on one card: fp32 sums in another order
 TOL = dict(rtol=1e-4, atol=1e-4)
+# a lowering on the card vs the same torch ops on the CPU (TF32 off): fp32
+# sums of at most 144 terms in another order.  An int8 form sums the codes
+# (up to 127 times the weight over its channel's scale) before the
+# dequantize scale, so its rounding is that much larger against the output:
+# the reference's own int8 matrix holds it to 1e-4
+LOWERING_TOL = {"fp32": dict(rtol=1e-5, atol=1e-5),
+                "int8": dict(rtol=1e-4, atol=1e-4)}
+# a predict on the card vs a CPU session: probabilities of a saturated
+# softmax after 20 layers
+E2E_TOL = dict(rtol=1e-3, atol=1e-5)
+LOWERINGS = [(v, "fp32") for v in VARIANTS] + [(v, "int8")
+                                               for v in INT8_VARIANTS]
 
 # epilogue mode -> (bn, relu, residual, pool kind, concat)
 EPILOGUES = {
@@ -245,3 +264,71 @@ def test_densenet121_predict_launches_only_the_sm90_route(card):
     np.testing.assert_allclose(got_l, want_l, rtol=smoke.LOGIT_TOL,
                                atol=smoke.LOGIT_TOL * scale)
     assert got_l.argmax() == want_l.argmax()
+
+
+@pytest.mark.parametrize("variant,dtype", LOWERINGS,
+                         ids=[f"{v}-{d}" for v, d in LOWERINGS])
+@pytest.mark.parametrize("mode", ["bn_relu", "residual", "pool_relu",
+                                  "concat"])
+def test_lowering_on_card_matches_its_cpu_run(card, variant, dtype, mode):
+    """Each lowering (cuBLAS on the card, TF32 off) against the same torch
+    ops on the CPU; an int8 form on per-channel int8 codes with the
+    dequantize scale in the epilogue's scale."""
+    args, spec = _operands(mode, 2, (1, 2), card)
+    x, w, scale, shift, res, buf = args
+    if dtype == "int8":
+        q, w_scale = quantize_per_channel(
+            kernel_from_kcrs_ck(w).cpu().numpy())
+        w = kernel_to_kcrs_ck(torch.from_numpy(q), 8, 8).to(card)
+        ws = torch.from_numpy(w_scale).reshape(-1, 8).to(card)
+        scale = ws if scale is None else scale * ws
+    args = (x, w, scale, shift, res, buf)
+    kw = dict(stride=2, epilogue=spec, variant=variant, dtype=dtype)
+    before = kmod.conv2d_nchwc.launches
+    got = conv2d_lowered(*args, **kw)
+    torch.cuda.synchronize()
+    assert kmod.conv2d_nchwc.launches == before
+    want = conv2d_lowered(*(None if a is None else a.cpu() for a in args),
+                          **kw)
+    torch.testing.assert_close(got.cpu(), want, **LOWERING_TOL[dtype])
+
+
+@pytest.mark.parametrize("use_kernel,dtype", [(True, "fp32"),
+                                              (False, "fp32"),
+                                              (False, "int8")])
+def test_predict_runs_one_path_only(card, use_kernel, dtype):
+    """A default predict launches the kernel once per conv and runs no
+    lowering; a ``use_kernel=False`` predict (fp32 or int8) runs one
+    lowering per conv and launches the kernel no time.  Both match a CPU
+    session of the same plan."""
+    shape = (1, 3, 64, 64)
+    sess = compile("resnet-18", shape, device=card, use_kernel=use_kernel,
+                   dtype=dtype)
+    plan = sess.plan_for(1).planned
+    n_convs = sum(1 for n in plan.graph.topo_order()
+                  if n.op in ("conv_block", "conv2d"))
+    x = torch.randn(*shape, device=card)
+    launches = kmod.conv2d_nchwc.launches
+    lowered = sum(conv2d_lowered.calls.values())
+    y = sess.predict(x)
+    torch.cuda.synchronize()
+    assert kmod.conv2d_nchwc.launches - launches == (
+        n_convs if use_kernel else 0)
+    assert sum(conv2d_lowered.calls.values()) - lowered == (
+        0 if use_kernel else n_convs)
+    ref = compile("resnet-18", shape, device="cpu", use_kernel=use_kernel,
+                  dtype=dtype)
+    np.testing.assert_allclose(y.cpu().numpy(), ref.predict(x.cpu()).numpy(),
+                               **E2E_TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["kernel", "lowerings"])
+def test_folded_and_unfolded_bn_agree_on_card(card, use_kernel):
+    sess = compile("resnet-18", (1, 3, 64, 64), device=card)
+    plan = sess.plan_for(1)
+    x = torch.randn(1, 3, 64, 64, device=card)
+    folded, unfolded = (compile_model(plan, sess._params,
+                                      use_kernel=use_kernel, fold_bn=fold)
+                        .predict(x).cpu().numpy() for fold in (True, False))
+    np.testing.assert_allclose(unfolded, folded, **E2E_TOL)

@@ -125,3 +125,24 @@ def test_chip_smoke_main_phase_runs_on_cpu():
     out = smoke.phase_main("cpu", image=32, requests=2, big_batch=2)
     assert out["conv_blocks"] == 53 and out["launches"] == 0
     assert out["requests"] == [1, 1, 2]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "int8"])
+def test_chip_smoke_main_phase_on_the_lowerings_runs_on_cpu(dtype):
+    """The ``variants`` phase's sessions at a tiny size: ``use_kernel=False``
+    runs one lowering per conv node a predict, in the plan's variants and
+    dtypes, and no kernel."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = smoke.phase_main("cpu", image=32, requests=1, big_batch=2,
+                           use_kernel=False, dtype=dtype)
+    assert out["launches"] == 0 and out["dtype"] == dtype
+    assert sum(out["plan_variants"].values()) == out["conv_nodes"] == 53
+    assert sum(out["lowering_calls"].values()) == 2 * 53
+    assert (dtype == "int8") == any(k.endswith("/int8")
+                                    for k in out["lowering_calls"])

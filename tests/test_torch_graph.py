@@ -16,10 +16,12 @@ import torch
 from repro.core.pipeline import MODES, Pipeline as RPipeline
 from repro.engine.executor import bind_params as r_bind
 from repro.engine.session import _graph_to_json as r_graph_json
+from repro.engine.session import _plan_from_json as r_plan_from_json
 from repro.engine.session import _plan_to_json as r_plan_json
 from repro.models.cnn import build as r_build
 from repro.nn.init import init_params as r_init
-from repro_torch.engine import bind_params as t_bind, params_from_numpy
+from repro_torch.engine import (CompiledModel, bind_params as t_bind,
+                                params_from_numpy)
 from repro_torch.engine.session import (_graph_from_json, _graph_to_json,
                                         _plan_from_json, _plan_to_json)
 from repro_torch.models.cnn import MODELS, build as t_build
@@ -32,7 +34,8 @@ def _leaves_equal(want, got):
         assert sorted(want[node]) == sorted(got[node]), node
         for leaf, arr in want[node].items():
             g = got[node][leaf]
-            assert isinstance(g, torch.Tensor) and g.dtype == torch.float32
+            assert isinstance(g, torch.Tensor)
+            assert g.numpy().dtype == np.asarray(arr).dtype, (node, leaf)
             np.testing.assert_array_equal(g.numpy(), np.asarray(arr),
                                           err_msg=f"{node}.{leaf}")
 
@@ -93,11 +96,20 @@ def test_bind_params_match_reference_on_crossed_plan(mode):
 
 
 def test_bind_rejects_int8_schedules():
+    """An int8 schedule binds to the reference's per-channel int8 codes and
+    dequantize scale, bit for bit; the kernel path, which has no int8
+    instantiation, rejects it at predict, naming ``use_kernel=False``."""
     rg, rs = r_build("resnet-18", batch=1, image=32)
     params = r_init(rg, rs, seed=0)
     js = json.loads(json.dumps(r_plan_json(
         RPipeline.preset("fusion").run(rg, rs))))
     name = next(iter(js["schedules"]))
-    js["schedules"][name]["dtype"] = "int8"
-    with pytest.raises(NotImplementedError, match="int8"):
-        t_bind(_plan_from_json(js), params_from_numpy(params, device="cpu"))
+    js["schedules"][name].update(dtype="int8", variant="tap_stack")
+    want = r_bind(r_plan_from_json(json.loads(json.dumps(js))), params)
+    crossed = _plan_from_json(js)
+    got = t_bind(crossed, params_from_numpy(params, device="cpu"))
+    _leaves_equal(want, got)
+    assert got[name]["w"].dtype == torch.int8 and "scale" in got[name]
+    model = CompiledModel(plan=crossed, params=got)
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        model.predict(torch.zeros(rs[model.input_name]))
