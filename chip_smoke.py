@@ -107,6 +107,22 @@ Phases, each a function of a device and a size:
                 B1 launch, and its idle share, B1 alone on
                 each distinct conv and cuDNN's fp32 conv2d over the
                 plan's convs, by the card's time, and B1's two bounds.
+10. artifacts — A6 on the card: phase 3's ResNet-50 session (batch 1 and
+                8, the source packed), a ResNet-50 ``dtype="int8"``
+                session on the lowerings (batch 1) and phase 5's
+                mamba2-130m session are each saved and loaded cold in a
+                fresh ``python3 chip_smoke.py --load-artifact`` process,
+                which must predict (generate) bit for bit as the saving
+                session did, with every weight leaf bit-identical, no
+                schedule search, B1 53 times a ResNet-50 predict, all
+                sm90 (none on the lowerings, whose artifact carries
+                ``quantized.json``), B4 24 times a mamba2 prefill; the
+                child also plans batch 2 from the packed source (held to
+                the parent's at ``LOGIT_TOL``), and a copy of the ResNet-50
+                artifact with one flipped byte must raise
+                ``ArtifactCorruptError``.  One line an artifact: save
+                seconds, bytes and files, the child's start, load and
+                first-predict seconds beside ``compile_s``.
                 The earlier models' sessions are released before
                 arctic-480b's phases, and each phase prints the card's
                 peak allocated memory.
@@ -138,11 +154,14 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -2219,6 +2238,404 @@ def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 10. artifacts: save, then load cold in a fresh process
+# ---------------------------------------------------------------------------
+
+ARTIFACT_REQUESTS = 4        # batch-1 requests of each CNN artifact
+RESPECIALIZE = 2             # a batch size the ResNet-50 artifact lacks
+# (prompt length, new tokens): the full bucket, an exact bucket, a bucket
+# plus 8 catch-up steps
+ARTIFACT_PROMPTS = ((2048, 1), (1024, 8), (520, 8))
+CHILD_TIMEOUT_S = 600
+
+
+def leaf_digests(tree: dict) -> dict:
+    """SHA-256 of each tensor leaf's bytes, by dotted path: two
+    processes' weights compared bit for bit."""
+    from repro_torch.checkpoint.store import _flatten
+
+    return {path: hashlib.sha256(t.detach().cpu().contiguous().view(
+                torch.uint8).numpy().tobytes()).hexdigest()
+            for path, t in _flatten(tree)}
+
+
+def session_digests(sess) -> dict:
+    """``leaf_digests`` of a CNN session: every specialization's bound
+    weights and, where it has them, its logical ones."""
+    tree = {str(b): sess.specialize(b).params for b in sess.batch_sizes}
+    if sess._params is not None:
+        tree["source"] = sess._params
+    return leaf_digests(tree)
+
+
+def artifact_size(path: Path) -> dict:
+    files = [f for f in path.rglob("*") if f.is_file()]
+    return {"bytes": sum(f.stat().st_size for f in files),
+            "files": len(files)}
+
+
+def _outputs(y) -> list:
+    return [t.cpu().numpy() for t in (y if isinstance(y, tuple) else (y,))]
+
+
+def _same(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and x.tobytes() == y.tobytes() for x, y in zip(a, b))
+
+
+def run_child(art: Path, work: Path, device, job: dict) -> dict:
+    """Load ``art`` in a fresh ``python3 chip_smoke.py --load-artifact``
+    process on ``device`` and run ``job`` there (``load_artifact``); the
+    inputs and outputs cross as .npy files in ``work``, the child's
+    measurements as ``result.json``.  ``start_s`` is the time from the
+    spawn to a ready CUDA context (Python, torch, the context)."""
+    (work / "job.json").write_text(json.dumps(job))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--load-artifact",
+         str(art), str(work), str(device)],
+        capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the artifact's child process failed "
+                           f"({proc.returncode}):\n{proc.stdout[-4000:]}"
+                           f"{proc.stderr[-4000:]}")
+    res = json.loads((work / "result.json").read_text())
+    res["start_s"] = res.pop("t_ready") - t0
+    res["child_s"] = wall
+    return res
+
+
+def load_artifact(argv: list) -> int:
+    """The child of ``phase_artifacts``: ``--load-artifact ART WORK
+    DEVICE`` loads ART cold on DEVICE, answers WORK/job.json's requests
+    through the loaded session with every count set to 0 just before, and
+    writes the outputs and ``result.json`` into WORK.  ``load_s`` holds
+    the check that the job's kernels are built, and ``rebuild_s`` any
+    build that check had to run."""
+    art, work, device = Path(argv[0]), Path(argv[1]), torch.device(argv[2])
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core.local_search import search_calls
+    from repro_torch.engine import InferenceSession, LMSession
+    from repro_torch.kernels import build as kbuild
+
+    job = json.loads((work / "job.json").read_text())
+    on_card = device.type == "cuda"
+    torch.zeros(1, device=device)          # the context, before the clock
+    t_ready = time.time()
+    t0 = time.perf_counter()
+    rebuild_s = sum((kbuild.build(k)["seconds"] for k in job["kernels"]),
+                    0.0) if on_card else 0.0
+    lm = job["kind"] == "lm"
+    sess = (LMSession if lm else InferenceSession).load(art, device=device)
+    if on_card:
+        torch.cuda.synchronize(device)
+    load_s = time.perf_counter() - t0
+    out = {"t_ready": t_ready, "load_s": load_s, "rebuild_s": rebuild_s,
+           "searches_at_load": search_calls()}
+    fns = _kernel_fns()
+    reset_counts()
+    lowered0 = lowering_calls()
+    per_request, lowered, first_s = [], [], None
+    if lm:
+        for i, (f, new) in enumerate(zip(job["prompts"], job["new"])):
+            before = read_counts()
+            t1 = time.perf_counter()
+            toks = sess.generate(np.load(work / f), new)
+            if i == 0:
+                first_s = time.perf_counter() - t1
+            after = read_counts()
+            per_request.append({k: after[k] - before[k] for k in after})
+            np.save(work / f"tok{i}.npy", toks)
+        out.update(cfg=dataclasses.asdict(sess.cfg),
+                   seq_buckets=sess.seq_buckets,
+                   digests=leaf_digests(sess._params))
+    else:
+        xs = [np.load(work / f) for f in job["inputs"]]
+        for i, x in enumerate(xs):
+            before = read_counts()
+            low = sum(lowering_calls().values())
+            t1 = time.perf_counter()
+            ys = _outputs(sess.predict(torch.from_numpy(x).to(device)))
+            if i == 0:
+                first_s = time.perf_counter() - t1
+            after = read_counts()
+            per_request.append({k: after[k] - before[k] for k in after})
+            lowered.append(sum(lowering_calls().values()) - low)
+            for j, y in enumerate(ys):
+                np.save(work / f"y{i}_{j}.npy", y)
+    counts = read_counts()
+    out.update(first_s=first_s, searches=search_calls(),
+               launches=counts, launches_per_request=per_request,
+               b1_launches_by_route=dict(
+                   fns["conv2d_nchwc"].launches_by_route),
+               lowerings_per_request=lowered,
+               lowering_calls={k: v - lowered0.get(k, 0) for k, v in
+                               lowering_calls().items()
+                               if v != lowered0.get(k, 0)})
+    if not lm:
+        # after the counts were read: each softmax's input as an output,
+        # on the loaded plans and weights, then an unseen batch size
+        # planned from the packed source
+        for i, x in enumerate(xs):
+            ys = _outputs(with_logits(sess.specialize(x.shape[0])).predict(
+                torch.from_numpy(x).to(device)))
+            for j, y in enumerate(ys):
+                np.save(work / f"z{i}_{j}.npy", y)
+        out.update(dtype=sess.dtype, use_kernel=sess.use_kernel,
+                   frozen=sess.frozen, batch_sizes=sess.batch_sizes,
+                   digests=session_digests(sess))
+        if job.get("respecialize"):
+            x = np.load(work / job["respecialize"])
+            before = search_calls()
+            t1 = time.perf_counter()
+            m = sess.specialize(x.shape[0])
+            out["respecialize_s"] = time.perf_counter() - t1
+            out["respecialize_searches"] = search_calls() - before
+            for j, y in enumerate(_outputs(with_logits(m).predict(
+                    torch.from_numpy(x).to(device)))):
+                np.save(work / f"r_{j}.npy", y)
+    (work / "result.json").write_text(json.dumps(out))
+    return 0
+
+
+def _expect_corrupt(bad: Path, device) -> str:
+    """Loading ``bad`` must raise ``ArtifactCorruptError``; its message."""
+    from repro_torch.engine import ArtifactCorruptError, InferenceSession
+
+    try:
+        InferenceSession.load(bad, device=device)
+    except ArtifactCorruptError as e:
+        return str(e)
+    raise RuntimeError(f"an artifact with a flipped byte loaded: {bad}")
+
+
+def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
+                  compile_s: float, kernels: list, respecialize=None,
+                  corrupt: bool = False) -> dict:
+    """Save ``session``, load it in a child and hold the child to it: the
+    outputs and logits of every request bit for bit, zero searches, the
+    launches of a predict (B1 once per conv node, all sm90, on the kernel
+    path; one lowering a conv node and no B1 on the lowerings), every
+    weight leaf bit for bit; then, where asked, an unseen batch size
+    planned from the packed source against the saving session's, and a
+    copy with one flipped byte refused."""
+    on_card = torch.device(device).type == "cuda"
+    art, work = tmp / name, tmp / f"{name}-work"
+    work.mkdir()
+    t0 = time.perf_counter()
+    session.save(art)
+    save_s = time.perf_counter() - t0
+    size = artifact_size(art)
+    job = {"kind": "cnn", "kernels": kernels, "inputs": []}
+    for i, x in enumerate(xs):
+        job["inputs"].append(f"x{i}.npy")
+        np.save(work / f"x{i}.npy", x)
+    if respecialize is not None:
+        job["respecialize"] = "xr.npy"
+        np.save(work / "xr.npy", respecialize)
+    want = [_outputs(session.predict(torch.from_numpy(x).to(device)))
+            for x in xs]
+    want_z = [_outputs(with_logits(session.specialize(x.shape[0])).predict(
+        torch.from_numpy(x).to(device))) for x in xs]
+    digests = session_digests(session)
+    res = run_child(art, work, device, job)
+
+    def got(prefix, i, n):
+        return [np.load(work / f"{prefix}{i}_{j}.npy") for j in range(n)]
+
+    same = [_same(got("y", i, len(w)), w) for i, w in enumerate(want)]
+    same_z = [_same(got("z", i, len(w)), w) for i, w in enumerate(want_z)]
+    if not all(same) or not all(same_z):
+        raise RuntimeError(f"{name}: the loaded session's outputs differ "
+                           f"from the saving session's ({same}, {same_z})")
+    if res["digests"] != digests:
+        bad = sorted(k for k in digests if res["digests"].get(k)
+                     != digests[k])
+        raise RuntimeError(f"{name}: weight leaves differ after the load: "
+                           f"{bad[:5]} ({len(bad)})")
+    if res["searches"] != 0 or res["searches_at_load"] != 0:
+        raise RuntimeError(f"{name}: {res['searches']} schedule searches "
+                           "in the loaded session's predicts")
+    graph = session.plan_for(1).planned.graph
+    n_convs = sum(1 for n in graph.topo_order() if n.op in CONV_OPS)
+    b1 = n_convs if on_card and session.use_kernel else 0
+    per = [r["conv2d_nchwc"] for r in res["launches_per_request"]]
+    others = {k: v for k, v in res["launches"].items()
+              if k != "conv2d_nchwc" and v}
+    if per != [b1] * len(xs) or others:
+        raise RuntimeError(f"{name}: B1 launches per predict {per}, "
+                           f"expected {b1} each; other launches {others}")
+    routes = {k: v for k, v in res["b1_launches_by_route"].items() if v}
+    if routes != ({"sm90": sum(per)} if b1 else {}):
+        raise RuntimeError(f"{name}: B1 launches by route {routes}, "
+                           f"expected all {sum(per)} on sm90")
+    lowerings = 0 if session.use_kernel else n_convs
+    if res["lowerings_per_request"] != [lowerings] * len(xs):
+        raise RuntimeError(f"{name}: lowerings per predict "
+                           f"{res['lowerings_per_request']}, expected "
+                           f"{lowerings} each")
+    if (res["dtype"], res["use_kernel"], res["batch_sizes"]) != (
+            session.dtype, session.use_kernel, session.batch_sizes):
+        raise RuntimeError(f"{name}: loaded as {res['dtype']}, use_kernel "
+                           f"{res['use_kernel']}, batches "
+                           f"{res['batch_sizes']}")
+    quantized = (art / "quantized.json").is_file()
+    if quantized != (session.dtype == "int8"):
+        raise RuntimeError(f"{name}: quantized.json present: {quantized}")
+    line = {"phase": "artifacts", "artifact": name,
+            "model": session.model_name, "dtype": session.dtype,
+            "use_kernel": session.use_kernel,
+            "batches": session.batch_sizes, "save_s": save_s, **size,
+            "compile_s": compile_s, "start_s": res["start_s"],
+            "load_s": res["load_s"], "rebuild_s": res["rebuild_s"],
+            "first_predict_s": res["first_s"], "child_s": res["child_s"],
+            "requests": [int(x.shape[0]) for x in xs],
+            "b1_launches_per_predict": per,
+            "b1_launches_by_route": res["b1_launches_by_route"],
+            "lowerings_per_predict": res["lowerings_per_request"],
+            "lowering_calls": res["lowering_calls"],
+            "search_calls": res["searches"], "quantized_json": quantized,
+            "outputs_bit_identical": True, "logits_bit_identical": True,
+            "leaves_bit_identical": len(digests)}
+    if respecialize is not None:
+        b = int(respecialize.shape[0])
+        ref = _outputs(with_logits(session.specialize(b)).predict(
+            torch.from_numpy(respecialize).to(device)))
+        session.release(b)
+        new = [np.load(work / f"r_{j}.npy") for j in range(len(ref))]
+        err = 0.0
+        for g, w in zip(new, ref):
+            scale = float(np.abs(w).max())
+            np.testing.assert_allclose(g, w, rtol=LOGIT_TOL,
+                                       atol=LOGIT_TOL * scale)
+            err = max(err, float(np.abs(g - w).max()) / scale)
+        line["respecialized"] = {
+            "batch": b, "seconds": res["respecialize_s"],
+            "searches": res["respecialize_searches"],
+            "max_logit_err_rel": err, "bit_identical": _same(new, ref),
+            "logit_tol_rel": LOGIT_TOL}
+    if corrupt:
+        bad = tmp / f"{name}-corrupt"
+        shutil.copytree(art, bad)
+        victim = sorted((bad / "weights").rglob("leaf_*.npy"))[0]
+        data = bytearray(victim.read_bytes())
+        data[len(data) // 2] ^= 0xFF
+        victim.write_bytes(bytes(data))
+        msg = _expect_corrupt(bad, device)
+        line["corrupt_copy_refused"] = {
+            "file": victim.relative_to(bad).as_posix(), "error": msg[:160]}
+        shutil.rmtree(bad)
+    shutil.rmtree(art)
+    shutil.rmtree(work)
+    emit(line)
+    return line
+
+
+def _lm_artifact(run: dict, name: str, tmp: Path, device, prompts) -> dict:
+    """Save an LM session, load it in a child, and hold the child to it:
+    every weight leaf bit for bit, the same tokens for every prompt, and
+    on the card B4 (or the model's attention kernel) once per layer per
+    prefill, with no search."""
+    session = run["session"]
+    on_card = torch.device(device).type == "cuda"
+    cfg = session.cfg
+    art, work = tmp / name, tmp / f"{name}-work"
+    work.mkdir()
+    t0 = time.perf_counter()
+    session.save(art)
+    save_s = time.perf_counter() - t0
+    size = artifact_size(art)
+    rng = np.random.default_rng(11)
+    toks = [rng.integers(0, cfg.vocab, size=(session.batch, n))
+            for n, _ in prompts]
+    for i, t in enumerate(toks):
+        np.save(work / f"p{i}.npy", t)
+    kernels = lm_kernels_of(cfg)
+    job = {"kind": "lm", "prompts": [f"p{i}.npy" for i in range(len(toks))],
+           "new": [new for _, new in prompts],
+           "kernels": ["ssd_chunk_sm90"] if "ssd_intra" in kernels
+           else ["flash_attention_sm90"]}
+    want = [session.generate(t, new) for t, (_, new) in zip(toks, prompts)]
+    digests = leaf_digests(session._params)
+    res = run_child(art, work, device, job)
+    same = [np.array_equal(np.load(work / f"tok{i}.npy"), w)
+            for i, w in enumerate(want)]
+    if not all(same):
+        raise RuntimeError(f"{name}: the loaded session's tokens differ "
+                           f"({same})")
+    if res["digests"] != digests:
+        raise RuntimeError(f"{name}: weight leaves differ after the load")
+    if res["cfg"] != json.loads(json.dumps(dataclasses.asdict(cfg))) \
+            or res["seq_buckets"] != session.seq_buckets:
+        raise RuntimeError(f"{name}: config or buckets differ after the "
+                           "load")
+    want_launches = [{k: (bool(session.bucket_for(n)) * pp
+                          + (n - (session.bucket_for(n) or 0) + new - 1) * pd)
+                      if on_card else 0 for k, (pp, pd) in kernels.items()}
+                     for n, new in prompts]
+    got = [{k: r[k] for k in kernels} for r in res["launches_per_request"]]
+    others = {k: v for k, v in res["launches"].items()
+              if k not in kernels and v}
+    if got != want_launches or others or res["searches"]:
+        raise RuntimeError(f"{name}: launches per request {got}, expected "
+                           f"{want_launches}; others {others}; searches "
+                           f"{res['searches']}")
+    line = {"phase": "artifacts", "artifact": name,
+            "model": session.model_name, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "save_s": save_s, **size,
+            "compile_s": run["compile_s"], "start_s": res["start_s"],
+            "load_s": res["load_s"], "rebuild_s": res["rebuild_s"],
+            "first_generate_s": res["first_s"], "child_s": res["child_s"],
+            "requests": [list(p) for p in prompts],
+            "launches_per_request": got, "search_calls": res["searches"],
+            "tokens_equal": True, "leaves_bit_identical": len(digests)}
+    shutil.rmtree(art)
+    shutil.rmtree(work)
+    emit(line)
+    return line
+
+
+def phase_artifacts(device, main_run: dict, lm_run: dict,
+                    requests: int = ARTIFACT_REQUESTS,
+                    big_batch: int = BIG_BATCH,
+                    respecialize: int = RESPECIALIZE,
+                    prompts=ARTIFACT_PROMPTS) -> list:
+    """A6 on the card: ``main_run``'s session (its batch-1 and
+    ``big_batch`` specializations, the source packed), an int8 session on
+    the lowerings (batch 1) and ``lm_run``'s session, each saved and
+    loaded cold in a fresh process (``_cnn_artifact``, ``_lm_artifact``);
+    a copy of the first with one flipped byte must be refused.  All in a
+    temporary directory of the checkout that the phase deletes."""
+    from repro_torch.engine import compile
+
+    model, image = main_run["model"], main_run["image"]
+    *xs, x_big = requests_for(image, requests, big_batch, seed=7)
+    xr = np.random.default_rng(8).normal(
+        size=(respecialize, 3, image, image)).astype(np.float32)
+    tmp = Path(tempfile.mkdtemp(prefix=".artifacts-", dir=ROOT))
+    try:
+        lines = [_cnn_artifact(
+            main_run["session"], model, tmp, xs + [x_big], device,
+            main_run["compile_s"], ["conv2d_nchwc_sm90"], respecialize=xr,
+            corrupt=True)]
+        t0 = time.perf_counter()
+        q8 = compile(model, (1, 3, image, image), seed=0, device=device,
+                     dtype="int8", use_kernel=False)
+        lines.append(_cnn_artifact(q8, f"{model}-int8", tmp, xs, device,
+                                   time.perf_counter() - t0, []))
+        del q8
+        lines.append(_lm_artifact(lm_run, lm_run["model"], tmp, device,
+                                  prompts))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
 def _leaves(tree: dict):
     for v in tree.values():
         yield from _leaves(v) if isinstance(v, dict) else (v,)
@@ -2279,6 +2696,8 @@ def prefill_only(device, smi: str, model: str = "mamba2-130m") -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--load-artifact"]:
+        return load_artifact(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script measures the port on the card",
@@ -2348,6 +2767,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         memory.append(memory_line(f"zoo {m}", device))
+    artifacts = phase_artifacts(device, main_run, lm_runs["mamba2-130m"])
+    memory.append(memory_line("artifacts", device))
     # release every earlier session before arctic-480b's 55 GB of weights
     for run in [main_run, *lm_runs.values()]:
         run.pop("session")
@@ -2385,7 +2806,9 @@ def main() -> int:
                 "host_ms": sum(r["host_ms"] * r["count"] for r in rows),
                 "fma_bound_ms": sum(r["fma_bound_ms"] * r["count"]
                                     for r in rows),
-                "zoo_launches": {z["model"]: z["launches"] for z in zoo}}]
+                "zoo_launches": {z["model"]: z["launches"] for z in zoo},
+                "artifact_launches_per_predict":
+                artifacts[0]["b1_launches_per_predict"]}]
     # B2, B3 and B4: per prefill of the largest bucket (2,048 tokens at
     # batch 1), or for B2's splitk route per batch-1 decode step, i.e. one
     # launch per layer at that shape.  B2's and B4's times are the card's
@@ -2418,7 +2841,10 @@ def main() -> int:
             kernels[-1].update(
                 variant="sm90: 3xTF32 wgmma, C.B^T scores shared across "
                         "heads",
-                ms_events=n * r["ms"], fma_bound_ms=n * r["fma_bound_ms"])
+                ms_events=n * r["ms"], fma_bound_ms=n * r["fma_bound_ms"],
+                artifact_launches_per_request=[
+                    r["ssd_intra"] for r in artifacts[2]
+                    ["launches_per_request"]])
     lm_main = [{k: v for k, v in r.items()
                 if k not in ("session", "big_session")}
                for r in lm_runs.values()]
@@ -2428,6 +2854,7 @@ def main() -> int:
               "lm_main": lm_main, "lm_parity": parity,
               "variants": variants,
               "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e, "zoo": zoo,
+              "artifacts": artifacts,
               "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -7,13 +7,16 @@ appearing in different models is never searched twice.
 
 The port ranks with ``roofline_runner``, the analytical model of
 ``core.cost`` priced on a ``MachineModel``.  The measured search on the card
-(the reference's ``measured_runner`` / ``guided_local_search``) waits for
-ROADMAP A5.  The database keeps the reference's JSON blob format, so a
-database written by one package loads in the other.
+(the reference's ``measured_runner``, ``guided_local_search`` and
+``ScheduleDatabase.search_measured``) waits for ROADMAP A5.  The database
+keeps the reference's JSON blob format, in a file too, so a database
+written by one package loads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core.cost import H100, MachineModel, conv_schedule_cost
@@ -21,6 +24,17 @@ from repro_torch.core.schedule import (ConvSchedule, ConvWorkload,
                                        candidate_schedules)
 
 Runner = Callable[[ConvWorkload, ConvSchedule], float]
+
+# Process-wide spy: how many actual searches (not memo hits) have run.  A
+# session loaded from a saved artifact must go load -> predict without any
+# schedule search; tests and chip_smoke.py's artifacts phase assert on it.
+SEARCH_COUNTERS = {"local_search": 0}
+
+
+def search_calls() -> int:
+    """Total schedule searches executed in this process (memo hits
+    excluded)."""
+    return sum(SEARCH_COUNTERS.values())
 
 
 def roofline_runner(wl: ConvWorkload, s: ConvSchedule,
@@ -70,6 +84,7 @@ class LocalSearchResult:
 
 def local_search(wl: ConvWorkload, runner: Runner = roofline_runner
                  ) -> LocalSearchResult:
+    SEARCH_COUNTERS["local_search"] += 1
     cands = candidate_schedules(wl)
     scored = [RankedSchedule(s, runner(wl, s)) for s in cands]
     scored.sort(key=lambda r: (r.cost_s, r.schedule))
@@ -105,27 +120,79 @@ def _wl_key(wl: ConvWorkload) -> str:
 
 
 class ScheduleDatabase:
-    """Workload-keyed in-memory memo of search results.  ``to_blob`` /
-    ``load_blob`` carry it as the reference's JSON format; file persistence
-    waits for the sessions slice (ROADMAP A6).
+    """Workload-keyed memo of search results, optionally JSON-persisted
+    (the reference's blob format, so either package reads the other's
+    file).
+
+    Persistence caveat: every insert rewrites the whole blob, and an
+    analytical entry carries the full candidate ranking.  Path-backed
+    databases are meant for measured results (short shortlists); give
+    analytical searches an in-memory database (the default).
 
     The memo does not key on the machine: give each ``MachineModel`` its
     own database."""
 
-    def __init__(self) -> None:
+    def __init__(self, path: Optional[Path] = None) -> None:
+        self.path = Path(path) if path else None
         self._mem: Dict[str, LocalSearchResult] = {}
+        if self.path and self.path.exists():
+            self._load()
 
     def search(self, wl: ConvWorkload, runner: Runner = roofline_runner
                ) -> LocalSearchResult:
         key = _wl_key(wl)
         if key not in self._mem:
             self._mem[key] = local_search(wl, runner)
+            if self.path:
+                self._save()
         return self._mem[key]
 
-    def to_blob(self) -> Dict:
-        """JSON-serializable form of the entries (the reference's format)."""
+    def put(self, wl: ConvWorkload, result: LocalSearchResult) -> None:
+        """Install an externally produced ranking (e.g. a measured result
+        filtered to one variant) under the workload's key."""
+        self._mem[_wl_key(wl)] = result
+        if self.path:
+            self._save()
+
+    def merge(self, other: "ScheduleDatabase") -> int:
+        """Fold another database's entries into this one.  Conflict
+        semantics are **best-measured-wins**: on a shared workload key the
+        incoming entry replaces the existing one only when it is measured
+        AND the existing entry is either analytical or measured slower
+        (strictly worse best ``cost_s``).  An analytical incoming entry
+        never displaces anything, and ties keep the incumbent — so merging
+        the same database twice is idempotent.  Returns the number of
+        entries added or replaced.  (Already-bound plans are untouched:
+        the database only shapes future specializations.)"""
+        changed = 0
+        for key, result in other._mem.items():
+            have = self._mem.get(key)
+            if have is None:
+                self._mem[key] = result
+                changed += 1
+                continue
+            if not result.measured:
+                continue
+            if (not have.measured
+                    or result.ranked[0].cost_s < have.ranked[0].cost_s):
+                self._mem[key] = result
+                changed += 1
+        if changed and self.path:
+            self._save()
+        return changed
+
+    # -- persistence ---------------------------------------------------------
+    def to_blob(self, measured_only: bool = False) -> Dict:
+        """JSON-serializable form of the entries (the reference's format):
+        the unit the path-backed file and the session artifact persist.
+
+        ``measured_only`` keeps just the wall-clock-ranked entries: the
+        artifact path uses it, because an analytical entry carries the
+        full candidate ranking and is re-derivable."""
         blob = {}
         for key, res in self._mem.items():
+            if measured_only and not res.measured:
+                continue
             blob[key] = {
                 "workload": dataclasses.asdict(res.workload),
                 "measured": res.measured,
@@ -151,6 +218,10 @@ class ScheduleDatabase:
                 measured=rec.get("measured", False),
                 search_budget=tuple(rec.get("search_budget", (0, 0))))
 
+    def _save(self) -> None:
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.path.write_text(json.dumps(self.to_blob()))
+
     @staticmethod
     def _known_fields(cls, d: Dict) -> Dict:
         """Forward-compat: a database written by a newer version may carry
@@ -158,6 +229,9 @@ class ScheduleDatabase:
         of crashing the load (their *known* fields still key correctly)."""
         names = {f.name for f in dataclasses.fields(cls)}
         return {k: v for k, v in d.items() if k in names}
+
+    def _load(self) -> None:
+        self.load_blob(json.loads(self.path.read_text()))
 
     def __len__(self) -> int:
         return len(self._mem)

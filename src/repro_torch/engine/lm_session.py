@@ -15,16 +15,28 @@ PyTorch runs eagerly, so there are no per-bucket programs to compile:
 decode step.  On a CUDA device every prefill attention (dense, moe) or
 SSD intra-chunk block (ssm) launches the hand-written kernel B3 or B4, and
 every MoE router (moe, at prefill and at each decode step) the blocked
-matmul B2.  Saving and loading artifacts waits for ROADMAP A6.
+matmul B2.
+
+``save`` writes the reference's version-5 LM artifact: a manifest whose
+``"lm"`` section holds the config, ``max_len``, ``batch``, the bucket set
+and the prompt-traffic histogram, and the weights as step 0 of a
+``CheckpointStore``, every file checksummed, swapped in atomically.
+``load`` verifies the checksums and rebuilds the nested-dict tree from the
+leaves' dotted paths, bf16 leaves bit for bit — an artifact of either
+package, so also a bf16 one the reference writes but cannot read back
+(ROADMAP C5).  It never draws a template tree: arctic-480b's alone would
+be 55 GB.  Nothing is searched.
 """
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import CheckpointStore, unflatten_dicts
 from repro_torch.engine.telemetry import SizeHistogram
 from repro_torch.engine.traffic import _coerce_counts, solve_seq_buckets
 from repro_torch.models.lm.config import LMConfig
@@ -147,14 +159,69 @@ class LMSession:
 
     # -- persistence -----------------------------------------------------------
     def save(self, path: Union[str, Path]) -> Path:
-        raise NotImplementedError(
-            "saving LM artifacts waits for the checkpoint store (ROADMAP A6)")
+        """Write the version-5 LM artifact: manifest (config, bucket set,
+        traffic provenance) + checksummed weights, through the same atomic
+        temp-dir swap CNN artifacts use."""
+        from repro_torch.engine.session import (ARTIFACT_FORMAT,
+                                                ARTIFACT_VERSION, fresh_tmp,
+                                                write_artifact)
+
+        path = Path(path)
+        tmp = fresh_tmp(path)
+        CheckpointStore(tmp / "weights").save(
+            step=0, tree=self._params, meta={"kind": "lm-params"})
+        hist = self.traffic.counts()
+        manifest = {
+            "format": ARTIFACT_FORMAT,
+            "version": ARTIFACT_VERSION,
+            "model": self.model_name,
+            "lm": {
+                "config": dataclasses.asdict(self.cfg),
+                "max_len": self.max_len,
+                "batch": self.batch,
+                "seq_buckets": list(self.seq_buckets),
+                "traffic": {"histogram": {str(s): c for s, c in
+                                          sorted(hist.items())}},
+            },
+        }
+        return write_artifact(tmp, path, manifest)
 
     @classmethod
-    def load(cls, path: Union[str, Path]) -> "LMSession":
-        raise NotImplementedError(
-            "loading LM artifacts waits for the checkpoint store "
-            "(ROADMAP A6)")
+    def load(cls, path: Union[str, Path], *, device="cuda") -> "LMSession":
+        """Reconstruct an LM session from :meth:`save` output (of either
+        package), its weights on ``device``: checksums verified before
+        anything is read, zero schedule searches."""
+        from repro_torch.engine.session import (ArtifactCorruptError,
+                                                ArtifactError, read_manifest,
+                                                verify_checksums)
+
+        path = Path(path)
+        manifest = read_manifest(path)
+        lm = manifest.get("lm")
+        if not lm:
+            raise ArtifactError(
+                f"{path} is a CNN artifact (no 'lm' section); load it "
+                "with InferenceSession.load")
+        verify_checksums(path, manifest)
+        cfg_d = dict(lm["config"])
+        cfg_d["block_pattern"] = tuple(cfg_d.get("block_pattern") or ())
+        cfg = LMConfig(**cfg_d)
+        try:
+            leaves, _, _ = CheckpointStore(path / "weights").restore_flat(
+                step=0)
+        except (ValueError, FileNotFoundError, KeyError) as e:
+            raise ArtifactCorruptError(
+                f"artifact weights under {path}/weights are corrupt or "
+                f"incomplete: {e}") from e
+        params = unflatten_dicts({p: t.to(device)
+                                  for p, t in leaves.items()})
+        sess = cls(cfg, params, max_len=int(lm["max_len"]),
+                   batch=int(lm["batch"]),
+                   seq_buckets=[int(b) for b in lm.get("seq_buckets", [])],
+                   model_name=manifest.get("model"))
+        for s, c in (lm.get("traffic", {}).get("histogram") or {}).items():
+            sess.traffic.add(int(s), int(c))
+        return sess
 
 
 def compile_lm(model: Union[LMConfig, str], *,

@@ -8,7 +8,10 @@ behind asymmetric pads), two launches bit-identical, and predicts that
 launch only that route.  Each fp32 lowering and each int8 form on the card
 against the same torch ops on the CPU; a ``use_kernel=False`` predict (fp32
 and int8) launches the kernel no time, a default predict once per conv and
-no lowering; folded and unfolded BN agree on both paths.
+no lowering; folded and unfolded BN agree on both paths.  An artifact
+saved on the card (the kernel path and int8 on the lowerings) loads on the
+card with its weights and outputs bit for bit and no schedule search, and
+onto the CPU within the CPU session's tolerance.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference, so it also runs on a machine that
@@ -332,3 +335,41 @@ def test_folded_and_unfolded_bn_agree_on_card(card, use_kernel):
                                       use_kernel=use_kernel, fold_bn=fold)
                         .predict(x).cpu().numpy() for fold in (True, False))
     np.testing.assert_allclose(unfolded, folded, **E2E_TOL)
+
+
+@pytest.mark.parametrize("use_kernel,dtype", [(True, "fp32"),
+                                              (False, "int8")])
+def test_artifact_saved_and_loaded_on_card(card, tmp_path, use_kernel,
+                                           dtype):
+    """An artifact saved on the card loads on the card with every weight
+    leaf and every output bit for bit, the same launches a predict and no
+    schedule search; loaded onto the CPU, it predicts within the CPU
+    session's tolerance."""
+    from repro_torch.core.local_search import search_calls
+    from repro_torch.engine import InferenceSession
+
+    shape = (1, 3, 64, 64)
+    sess = compile("resnet-18", shape, device=card, use_kernel=use_kernel,
+                   dtype=dtype)
+    x = torch.randn(*shape, device=card)
+    y = sess.predict(x).cpu()
+    sess.save(tmp_path / "art")
+    n = search_calls()
+    loaded = InferenceSession.load(tmp_path / "art", device=card)
+    for node, leaves in sess.specialize(1).params.items():
+        for leaf, t in leaves.items():
+            got = loaded.specialize(1).params[node][leaf]
+            assert got.device.type == "cuda" and got.dtype == t.dtype
+            assert torch.equal(got, t), (node, leaf)
+    launches = kmod.conv2d_nchwc.launches
+    got = loaded.predict(x).cpu()
+    torch.cuda.synchronize()
+    n_convs = sum(1 for nd in sess.plan_for(1).planned.graph.topo_order()
+                  if nd.op in ("conv_block", "conv2d"))
+    assert kmod.conv2d_nchwc.launches - launches == (
+        n_convs if use_kernel else 0)
+    assert search_calls() == n
+    assert got.numpy().tobytes() == y.numpy().tobytes()
+    on_cpu = InferenceSession.load(tmp_path / "art", device="cpu")
+    np.testing.assert_allclose(on_cpu.predict(x.cpu()).numpy(), y.numpy(),
+                               **E2E_TOL)

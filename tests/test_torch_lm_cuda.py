@@ -1,7 +1,9 @@
 """The LM kernels on the card: B3 (both routes) and B4 against their plain
 versions (B4 bit-identical over two launches), the wrappers' refusals, and
 their launches through ``prefill`` (B4 24 times in mamba2-130m's at full
-depth).
+depth).  An LM artifact saved on the card (fp32 and bf16) loads on the
+card with every leaf bit for bit and the same tokens, and on the CPU with
+every leaf bit for bit.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports neither JAX nor the reference, so it also runs on a machine that
@@ -191,3 +193,49 @@ def test_prefill_launches_once_per_layer_and_matches_cpu(card, name):
     out = sess.generate(toks[:1, :13].numpy(), 4)    # bucket 8 + catch-up
     assert fn.launches - before == cfg.n_layers
     assert out.shape == (1, 4) and 0 <= out.min() and out.max() < cfg.vocab
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "mamba2-130m"])
+def test_lm_artifact_saved_and_loaded_on_card(card, tmp_path, name, dtype):
+    """An LM artifact saved on the card loads on the card with every leaf
+    bit for bit and the same tokens, launching its kernel once per layer
+    per prefill.  Loaded onto the CPU its leaves are the card's bit for
+    bit, and an fp32 one's prefill logits agree with the card's as in
+    ``test_prefill_launches_once_per_layer_and_matches_cpu``."""
+    import dataclasses
+
+    from repro_torch.engine import LMSession
+
+    cfg = dataclasses.replace(reduced(ARCHS[name]), dtype=dtype)
+    sess = compile_lm(cfg, max_len=32, device=card)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, 13))
+    want = sess.generate(toks, 4)
+    sess.save(tmp_path / "lm")
+    loaded = LMSession.load(tmp_path / "lm", device=card)
+    on_cpu = LMSession.load(tmp_path / "lm", device="cpu")
+    leaves = dict(_leaves(sess._params))
+    cpu_leaves = dict(_leaves(on_cpu._params))
+    for path, t in _leaves(loaded._params):
+        assert t.device.type == "cuda" and t.dtype == leaves[path].dtype
+        assert torch.equal(t, leaves[path]), path
+        assert torch.equal(cpu_leaves[path], t.cpu()), path
+    fn = fa.flash_attention if cfg.family == "dense" else sc.ssd_intra
+    before = fn.launches
+    np.testing.assert_array_equal(loaded.generate(toks, 4), want)
+    assert fn.launches - before == cfg.n_layers       # bucket 8
+    if dtype == "float32":
+        x = torch.from_numpy(toks[:, :8])
+        _, card_logits = TM.prefill(loaded._params, cfg, x.to(card),
+                                    max_len=32)
+        _, cpu_logits = TM.prefill(on_cpu._params, cfg, x, max_len=32)
+        torch.testing.assert_close(card_logits.cpu(), cpu_logits,
+                                   rtol=1e-4, atol=1e-4)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
