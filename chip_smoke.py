@@ -107,14 +107,35 @@ Phases, each a function of a device and a size:
                 B1 launch, and its idle share, B1 alone on
                 each distinct conv and cuDNN's fp32 conv2d over the
                 plan's convs, by the card's time, and B1's two bounds.
+   tuning     — A5 on the card: ResNet-50 and VGG-16 at 224 on B1, each
+                compiled with ``tuning="roofline"`` and ``"measured"``
+                (the guided search timing B1 on the card, the relayout
+                bandwidth probed on the same clock): compile seconds,
+                searches, measurements and the workloads the tie-break
+                decided, ``transform_bw``, each plan's transforms, B1 once
+                per conv node a predict (all sm90), both plans' latency
+                (interleaved A, B, B, A), device time by node group and
+                B1's time on each conv node the plans block differently;
+                every distinct conv of the measured plan held against B1's
+                plain version first, the measured session against a CPU
+                session built with ``tuning="cached"`` on its database
+                (plans equal).  ResNet-50 measured on the lowerings
+                (``use_kernel=False``: no B1 launch, its lowerings beside
+                the roofline plan's).  The paper's Table 3 ladder: each of
+                ``MODES`` with measured tuning on ResNet-50, on one
+                database (transforms, latency, device time; every blocked
+                conv of a rung held against B1's plain version first),
+                beside cuDNN's fp32 NCHW conv over the same convs;
 10. artifacts — A6 on the card: phase 3's ResNet-50 session (batch 1 and
                 8, the source packed), a ResNet-50 ``dtype="int8"``
-                session on the lowerings (batch 1) and phase 5's
-                mamba2-130m session are each saved and loaded cold in a
+                session on the lowerings (batch 1), phase 5's
+                mamba2-130m session and the tuning phase's measured
+                ResNet-50 session are each saved and loaded cold in a
                 fresh ``python3 chip_smoke.py --load-artifact`` process,
                 which must predict (generate) bit for bit as the saving
                 session did, with every weight leaf bit-identical, no
-                schedule search, B1 53 times a ResNet-50 predict, all
+                schedule search and no calibration probe, the saved
+                ``transform_bw``, B1 53 times a ResNet-50 predict, all
                 sm90 (none on the lowerings, whose artifact carries
                 ``quantized.json``), B4 24 times a mamba2 prefill; the
                 child also plans batch 2 from the packed source (held to
@@ -139,6 +160,10 @@ runs it in both checkouts, in turns, in one call.
 
 does the same for mamba2-130m's prefill at full depth: host ms per bucket
 and the card's time per 2,048-token prefill.
+
+    python3 chip_smoke.py --tuning-only
+
+runs the tuning phase alone.
 
 Run with no arguments, it prints one JSON line per item, the card's
 ``nvidia-smi`` name and power limit, the kernels' summary line, and as its
@@ -310,18 +335,25 @@ CONV_OPS = ("conv_block", "conv2d")
 
 
 def plan_convs(model: str, batch: int, image: int) -> list:
-    """Distinct (workload, ic_bn, oc_bn) of the port's plan, with their
-    multiplicity in one predict.  An unfused ``conv2d`` node (SSD's heads)
-    launches B1 with the identity epilogue and no shift: ``"shift"`` is
-    False for it."""
-    from repro_torch.core.pipeline import Pipeline, make_workload
+    """``planned_convs`` of the port's default (roofline, B1) plan."""
+    from repro_torch.core.pipeline import Pipeline
     from repro_torch.models.cnn import build
 
     graph, shapes = build(model, batch=batch, image=image)
-    planned = Pipeline.preset("fusion").run(graph, shapes).planned
+    return planned_convs(Pipeline.preset("fusion").run(graph, shapes))
+
+
+def planned_convs(plan) -> list:
+    """Distinct (workload, ic_bn, oc_bn) of a plan's blocked convs, with
+    their multiplicity in one predict.  An unfused ``conv2d`` node (SSD's
+    heads) launches B1 with the identity epilogue and no shift: ``"shift"``
+    is False for it."""
+    from repro_torch.core.pipeline import make_workload
+
+    planned = plan.planned
     convs: dict = {}
     for node in planned.graph.topo_order():
-        if node.op not in CONV_OPS:
+        if node.op not in CONV_OPS or node.name not in planned.schedules:
             continue
         s = planned.schedules[node.name]
         wl = make_workload(node, planned.graph.nodes[node.inputs[0]].shape)
@@ -1101,6 +1133,376 @@ def phase_variants(device, smi: str, models=VARIANT_MODELS,
     if missing:
         raise RuntimeError(f"no session ran the lowerings {missing}")
     return lines
+
+
+# ---------------------------------------------------------------------------
+# tuning: A5, the measured schedule search on the card, and Table 3
+# ---------------------------------------------------------------------------
+
+TUNING_MODELS = (("resnet-50", 224), ("vgg-16", 224))
+# measured tuning's (top_k, per_variant, repeats): the reference's shortlist,
+# ten back-to-back calls a candidate on the card's clock
+TUNING_BUDGET = (6, 2, 10)
+TUNING_ITERS = 20             # latency samples of each plan
+
+
+def measured_search_stats(db, searches: int) -> dict:
+    """What a database's measured entries took: searches, measurements
+    (one a shortlisted candidate) and the workloads whose winner the
+    analytical tie-break decided (more than one candidate within the noise
+    floor of the fastest)."""
+    from repro_torch.core.local_search import ties
+
+    entries = [r for r in db._mem.values() if r.measured]
+    return {"searches": searches, "measured_workloads": len(entries),
+            "measurements": sum(len(r.ranked) for r in entries),
+            "decided_by_tie_break": sum(1 for r in entries if ties(r) > 1)}
+
+
+def interleaved_latency(a, b, x, iters: int) -> tuple:
+    """Batch-1 predict latency of sessions ``a`` and ``b`` (ms, host clock
+    around a synchronize), in the order A, B, B, A, ``iters`` samples each:
+    the medians and each side's quartile spread."""
+    for s in (a, b):
+        s.predict(x)
+    times = {id(a): [], id(b): []}
+    for s in (a, b, b, a):
+        for _ in range(iters // 2):
+            t0 = time.perf_counter()
+            s.predict(x)
+            torch.cuda.synchronize()
+            times[id(s)].append((time.perf_counter() - t0) * 1e3)
+
+    def stats(t):
+        q = statistics.quantiles(t, n=4)
+        return {"median_ms": statistics.median(t), "iqr_ms": q[2] - q[0]}
+
+    return stats(times[id(a)]), stats(times[id(b)])
+
+
+def b1_per_predict(session, x) -> dict:
+    """B1's launches in one predict of ``session``, in all and by route,
+    with every count set to 0 just before."""
+    from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
+
+    reset_counts()
+    session.predict(x)
+    counts = read_counts()
+    return {"launches": counts["conv2d_nchwc"],
+            "by_route": {k: v for k, v in
+                         conv2d_nchwc.launches_by_route.items() if v},
+            "others": {k: v for k, v in counts.items()
+                       if k != "conv2d_nchwc" and v}}
+
+
+def held_to_cpu(card, model: str, image: int, xs: list, device) -> dict:
+    """``card`` (a measured session) against a CPU session of the same seed
+    built with ``tuning="cached"`` on the card session's database and
+    transform bandwidth: the plans at batch 1 must be equal, and every
+    request's outputs and logits held as ``phase_main`` holds them."""
+    from repro_torch.engine import compile
+    from repro_torch.engine.session import _plan_to_json
+
+    cpu = compile(model, (1, 3, image, image), device="cpu",
+                  tuning="cached", db=card.db,
+                  transform_bw=card.transform_bw,
+                  use_kernel=card.use_kernel)
+    plans = [_plan_to_json(s.plan_for(1)) for s in (card, cpu)]
+    for p in plans:
+        p.pop("report")
+    if plans[0] != plans[1]:
+        raise RuntimeError(f"{model}: the measured plan differs from the "
+                           "CPU session's on the same database")
+    graph = card.plan_for(1).planned.graph
+    softmax = [graph.nodes[o].op == "softmax" for o in graph.outputs]
+    pair = [with_logits(s.specialize(1)) for s in (card, cpu)]
+    err = raw_err = 0.0
+    for x in xs:
+        got, want = (_outputs(m.predict(torch.from_numpy(x).to(on)))
+                     for m, on in zip(pair, (device, "cpu")))
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i < len(softmax) and softmax[i]:
+                np.testing.assert_allclose(g, w, **E2E_TOL)
+                if (g.argmax(axis=1) != w.argmax(axis=1)).any():
+                    raise RuntimeError(f"{model}: top-1 differs from the "
+                                       "CPU session")
+                err = max(err, float(np.abs(g - w).max()))
+                continue
+            scale = float(np.abs(w).max())
+            np.testing.assert_allclose(g, w, rtol=LOGIT_TOL,
+                                       atol=LOGIT_TOL * scale)
+            raw_err = max(raw_err, float(np.abs(g - w).max()) / scale)
+    return {"plans_equal": True, "max_abs_err_vs_cpu": err,
+            "max_logit_err_vs_cpu_rel": raw_err, **E2E_TOL,
+            "logit_tol_rel": LOGIT_TOL}
+
+
+def plan_times(session, image: int, device, iters: int = 5) -> dict:
+    """Device ms per batch-1 predict of ``session``'s plan, in all and by
+    node group (``device_ms_by_group``, a trace that must hold every B1
+    launch), or "not measured" off the card."""
+    if torch.device(device).type != "cuda":
+        return {"device_ms_per_predict": "not measured"}
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(1, 3, image, image)).astype(np.float32)).to(device)
+    n_b1 = b1_per_predict(session, x)["launches"]
+    g = device_ms_by_group(lambda: session.predict(x), iters, iters * n_b1)
+    return {"device_ms_per_predict": g["device_ms"],
+            "device_ms_by_group": g["by_group"],
+            "b1_launches_traced": g["b1_launches"]}
+
+
+def pass_seconds(session) -> dict:
+    """Seconds of each pipeline pass of the session's batch-1 plan."""
+    return {p.name: p.seconds for p in session.plan_for(1).report.passes}
+
+
+def b1_node_diffs(roof, meas, x) -> list:
+    """The conv nodes whose (ic_bn, oc_bn) the two plans set differently,
+    each with B1's device ms in either plan (``b1_ms_by_node``) and what
+    the measured search saw of the two schedules, slowest difference
+    first: where the search and the end-to-end time may disagree."""
+    from repro_torch.core.pipeline import make_workload
+
+    a, b = (b1_ms_by_node(s, x) for s in (roof, meas))
+    pa, pb = (s.plan_for(1).planned.schedules for s in (roof, meas))
+    graph = meas.plan_for(1).planned.graph
+    rows = []
+    for name in a:
+        blocks = [(p[name].ic_bn, p[name].oc_bn) for p in (pa, pb)]
+        if blocks[0] == blocks[1]:
+            continue
+        node = graph.nodes[name]
+        costs = meas.db.search(make_workload(
+            node, graph.nodes[node.inputs[0]].shape),
+            use_kernel=True).layout_costs()
+        rows.append({"node": name,
+                     "roofline": [*blocks[0], a[name]],
+                     "measured": [*blocks[1], b[name]],
+                     "search_ms": [costs[k] * 1e3 if k in costs else None
+                                   for k in blocks]})
+    return sorted(rows, key=lambda r: r["roofline"][2] - r["measured"][2])
+
+
+def tuned_pair(device, model: str, image: int, budget, xs: list) -> dict:
+    """One network at batch 1 on B1, compiled with ``tuning="roofline"``
+    and with ``tuning="measured"`` (a fresh database): compile seconds,
+    the measured search's searches, measurements and tie-break decisions,
+    the probed ``transform_bw``, each plan's transforms, B1's launches a
+    predict (once per conv node, all sm90), the interleaved latencies and
+    each plan's device ms by node group; the measured session held to a
+    CPU session on its database (``held_to_cpu``).  Every distinct conv of
+    the measured plan goes through ``phase_kernels`` first."""
+    from repro_torch.core.calibrate import probe_calls
+    from repro_torch.core.local_search import SEARCH_COUNTERS
+    from repro_torch.core.local_search import ScheduleDatabase
+    from repro_torch.engine import compile
+
+    on_card = torch.device(device).type == "cuda"
+    spec = (1, 3, image, image)
+    t0 = time.perf_counter()
+    roof = compile(model, spec, seed=0, device=device)
+    roof_s = time.perf_counter() - t0
+    db = ScheduleDatabase()
+    searches, probes = SEARCH_COUNTERS["guided_local_search"], probe_calls()
+    t0 = time.perf_counter()
+    meas = compile(model, spec, seed=0, device=device, tuning="measured",
+                   db=db, search_budget=budget)
+    meas_s = time.perf_counter() - t0
+    stats = measured_search_stats(
+        db, SEARCH_COUNTERS["guided_local_search"] - searches)
+    stats["pass_seconds"] = pass_seconds(meas)
+    convs = planned_convs(meas.plan_for(1))
+    kernel_err = phase_kernels(device, convs) if on_card else None
+    n_convs = sum(c["count"] for c in convs)
+    x = torch.from_numpy(xs[0]).to(device)
+    out = {"phase": "tuning", "model": model, "image": image,
+           "budget": list(budget), "compile_s": {"roofline": roof_s,
+                                                 "measured": meas_s},
+           **stats, "probes": probe_calls() - probes,
+           "transform_bw": meas.transform_bw,
+           "transforms": {"roofline": roof.plan_for(1).planned.n_transforms,
+                          "measured": meas.plan_for(1).planned.n_transforms},
+           "conv_nodes": n_convs, "distinct_convs": len(convs),
+           "kernel_vs_plain_max_abs_err": kernel_err}
+    launches = {k: b1_per_predict(s, x) for k, s in
+                (("roofline", roof), ("measured", meas))}
+    for k, b1 in launches.items():
+        want = n_convs if on_card else 0
+        if (b1["launches"] != want or b1["others"]
+                or (on_card and b1["by_route"] != {"sm90": want})):
+            raise RuntimeError(f"{model} {k}: B1 launches a predict {b1}, "
+                               f"expected {want}, all sm90")
+    out["b1_per_predict"] = {k: b1["launches"] for k, b1 in launches.items()}
+    if on_card:
+        la, lb = interleaved_latency(roof, meas, x, TUNING_ITERS)
+        out["latency"] = {"roofline": la, "measured": lb,
+                          "order": "A B B A", "samples": TUNING_ITERS}
+    out["times"] = {"roofline": plan_times(roof, image, device),
+                    "measured": plan_times(meas, image, device)}
+    if on_card:
+        out["convs_b1_differs"] = b1_node_diffs(roof, meas, x)
+    out.update(held_to_cpu(meas, model, image, xs, device))
+    emit(out)
+    return {"line": out, "session": meas, "compile_s": meas_s, "db": db}
+
+
+def tuned_lowerings(device, model: str, image: int, budget,
+                    xs: list) -> dict:
+    """The reference's other engine measured: ``model`` fp32 with
+    ``use_kernel=False`` and ``tuning="measured"``; the lowerings its plan
+    chose beside the roofline plan's, no B1 launch and one lowering a conv
+    node a predict, and the outputs held to a CPU session on its
+    database."""
+    from repro_torch.core.cost import machine_for
+    from repro_torch.core.pipeline import Pipeline
+    from repro_torch.engine import compile
+    from repro_torch.models.cnn import build
+
+    graph, shapes = build(model, batch=1, image=image)
+    roof = Pipeline.preset("fusion").run(graph, shapes,
+                                         machine=machine_for(False))
+    t0 = time.perf_counter()
+    meas = compile(model, (1, 3, image, image), seed=0, device=device,
+                   tuning="measured", use_kernel=False, search_budget=budget)
+    compile_s = time.perf_counter() - t0
+    x = torch.from_numpy(xs[0]).to(device)
+    low = sum(lowering_calls().values())
+    b1 = b1_per_predict(meas, x)
+    low = sum(lowering_calls().values()) - low
+    n_convs = len(plan_conv_names(meas.plan_for(1)))
+    if b1["launches"] or b1["others"] or low != n_convs:
+        raise RuntimeError(f"{model} lowerings: B1 {b1}, lowerings {low} "
+                           f"of {n_convs} conv nodes")
+    out = {"phase": "tuning_lowerings", "model": model, "image": image,
+           "compile_s": compile_s, "transform_bw": meas.transform_bw,
+           "plan_variants": {"roofline": plan_variants(roof),
+                             "measured": plan_variants(meas.plan_for(1))},
+           "transforms": {"roofline": roof.planned.n_transforms,
+                          "measured": meas.plan_for(1).planned.n_transforms},
+           "b1_per_predict": 0, "lowerings_per_predict": low}
+    if torch.device(device).type == "cuda":
+        g = device_ms_by_group(lambda: meas.predict(x), 5, 0)
+        out["device_ms_per_predict"] = g["device_ms"]
+        out["device_ms_by_group"] = g["by_group"]
+    out.update(held_to_cpu(meas, model, image, xs, device))
+    emit(out)
+    return out
+
+
+def ladder(device, model: str, image: int, db, budget, x,
+           modes=None) -> list:
+    """The paper's Table 3 on the card: ``model`` at batch 1 under each
+    pipeline of ``MODES`` with measured tuning on B1, all on ``db`` (the
+    search runs once a workload); each rung's distinct blocked convs go
+    through ``phase_kernels`` before it is timed.  One line a rung:
+    compile seconds, transforms, B1 launches a predict, latency (median of
+    ``TUNING_ITERS``) and device ms a predict by node group.  The ``nchw``
+    rung runs no blocked conv: its convs are the unblocked direct conv
+    (``nn/ops.py::conv2d_nchw_direct``), B1 launches none."""
+    from repro_torch.core.pipeline import MODES, Pipeline
+    from repro_torch.engine import compile
+
+    on_card = torch.device(device).type == "cuda"
+    lines = []
+    for mode in modes or MODES:
+        t0 = time.perf_counter()
+        sess = compile(model, (1, 3, image, image), seed=0, device=device,
+                       pipeline=Pipeline.preset(mode), tuning="measured",
+                       db=db, search_budget=budget)
+        compile_s = time.perf_counter() - t0
+        convs = planned_convs(sess.plan_for(1))
+        err = phase_kernels(device, convs) if on_card and convs else None
+        b1 = b1_per_predict(sess, x)
+        want = sum(c["count"] for c in convs) if on_card else 0
+        if b1["launches"] != want or b1["others"]:
+            raise RuntimeError(f"ladder {mode}: B1 {b1}, expected {want}")
+        line = {"phase": "ladder", "model": model, "image": image,
+                "mode": mode, "compile_s": compile_s,
+                "pass_seconds": pass_seconds(sess),
+                "transforms": sess.plan_for(1).planned.n_transforms,
+                "b1_per_predict": b1["launches"],
+                "distinct_convs": len(convs),
+                "kernel_vs_plain_max_abs_err": err}
+        if on_card:
+            line["latency_ms"] = phase_latency(sess, device, image, 1,
+                                               TUNING_ITERS)["median_ms"]
+            line.update(plan_times(sess, image, device))
+        emit(line)
+        lines.append(line)
+        del sess
+    return lines
+
+
+def cudnn_nchw(device, convs: list) -> dict:
+    """cuDNN's fp32 ``F.conv2d`` (TF32 off) with bias over ``convs`` (each
+    its count), in NCHW: the library's baseline for the ladder, by the
+    card's time."""
+    import torch.nn.functional as F
+
+    cases = [(make_case(c["wl"], c["ic_bn"], c["oc_bn"], device,
+                        shift=c.get("shift", True)), c["count"])
+             for c in convs]
+
+    def run():
+        for case, count in cases:
+            for _ in range(count):
+                F.conv2d(case["x_nchw"], case["w_kcrs"], case["shift_vec"],
+                         stride=case["stride"], padding=case["pad"])
+
+    return {"phase": "ladder", "mode": "cudnn_nchw",
+            "convs": sum(n for _, n in cases),
+            "device_ms": _device_busy(run, 3)["device_ms"]}
+
+
+def phase_tuning(device, smi: str, models=TUNING_MODELS,
+                 budget=TUNING_BUDGET, lowerings=True, modes=None) -> dict:
+    """A5 on the card: the card's SM count and shared memory
+    (``MachineModel.from_device``) beside ``h100()``'s; for each network
+    ``tuned_pair`` (roofline against measured on B1, held to a CPU
+    session); ``tuned_lowerings`` on the first; then the Table 3 ladder
+    (``ladder``) on the first network, sharing its measured database,
+    beside cuDNN NCHW.  Returns the lines and the first network's
+    measured session (for ``phase_artifacts``)."""
+    if torch.device(device).type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        raise RuntimeError("TF32 is on: the lowerings' cuBLAS products and "
+                           "cuDNN would round their operands to 10 bits")
+    lines, first = [], None
+    if torch.device(device).type == "cuda":
+        from repro_torch.core.cost import H100, MachineModel
+
+        card = MachineModel.from_device(device)
+        lines.append({"phase": "tuning_machine", "card": smi,
+                      "cores": card.cores,
+                      "fast_mem_bytes": card.fast_mem_bytes,
+                      "equals_h100": card == H100})
+        emit(lines[-1])
+    for model, image in models:
+        xs = requests_for(image, 2, 1)[:2]
+        run = tuned_pair(device, model, image, budget, xs)
+        lines.append({**run["line"], "card": smi})
+        if first is None:
+            first = {**run, "model": model, "image": image}
+        else:
+            del run
+    model, image = first["model"], first["image"]
+    xs = requests_for(image, 2, 1)[:2]
+    if lowerings:
+        lines.append({**tuned_lowerings(device, model, image, budget, xs),
+                      "card": smi})
+    x = torch.from_numpy(xs[0]).to(device)
+    rungs = ladder(device, model, image, first["db"], budget, x, modes)
+    if torch.device(device).type == "cuda":
+        rungs.append(cudnn_nchw(device, planned_convs(
+            first["session"].plan_for(1))))
+        emit({**rungs[-1], "model": model, "image": image})
+    lines += [{**r, "card": smi} for r in rungs]
+    gc.collect()
+    return {"lines": lines, "session": first["session"],
+            "model": model, "image": image,
+            "compile_s": first["compile_s"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2319,6 +2721,7 @@ def load_artifact(argv: list) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core.calibrate import probe_calls
     from repro_torch.core.local_search import search_calls
     from repro_torch.engine import InferenceSession, LMSession
     from repro_torch.kernels import build as kbuild
@@ -2370,7 +2773,7 @@ def load_artifact(argv: list) -> int:
                 np.save(work / f"y{i}_{j}.npy", y)
     counts = read_counts()
     out.update(first_s=first_s, searches=search_calls(),
-               launches=counts, launches_per_request=per_request,
+               probes=probe_calls(), launches=counts, launches_per_request=per_request,
                b1_launches_by_route=dict(
                    fns["conv2d_nchwc"].launches_by_route),
                lowerings_per_request=lowered,
@@ -2388,6 +2791,7 @@ def load_artifact(argv: list) -> int:
                 np.save(work / f"z{i}_{j}.npy", y)
         out.update(dtype=sess.dtype, use_kernel=sess.use_kernel,
                    frozen=sess.frozen, batch_sizes=sess.batch_sizes,
+                   tuning=sess.tuning, transform_bw=sess.transform_bw,
                    digests=session_digests(sess))
         if job.get("respecialize"):
             x = np.load(work / job["respecialize"])
@@ -2461,6 +2865,12 @@ def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
     if res["searches"] != 0 or res["searches_at_load"] != 0:
         raise RuntimeError(f"{name}: {res['searches']} schedule searches "
                            "in the loaded session's predicts")
+    if res["probes"] != 0 or (res["tuning"], res["transform_bw"]) != (
+            session.tuning, session.transform_bw):
+        raise RuntimeError(f"{name}: {res['probes']} calibration probes, "
+                           f"tuning {res['tuning']} and transform_bw "
+                           f"{res['transform_bw']} after the load (saved: "
+                           f"{session.tuning}, {session.transform_bw})")
     graph = session.plan_for(1).planned.graph
     n_convs = sum(1 for n in graph.topo_order() if n.op in CONV_OPS)
     b1 = n_convs if on_card and session.use_kernel else 0
@@ -2499,7 +2909,9 @@ def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
             "b1_launches_by_route": res["b1_launches_by_route"],
             "lowerings_per_predict": res["lowerings_per_request"],
             "lowering_calls": res["lowering_calls"],
-            "search_calls": res["searches"], "quantized_json": quantized,
+            "search_calls": res["searches"], "probes": res["probes"],
+            "tuning": res["tuning"], "transform_bw": res["transform_bw"],
+            "quantized_json": quantized,
             "outputs_bit_identical": True, "logits_bit_identical": True,
             "leaves_bit_identical": len(digests)}
     if respecialize is not None:
@@ -2601,16 +3013,19 @@ def _lm_artifact(run: dict, name: str, tmp: Path, device, prompts) -> dict:
 
 
 def phase_artifacts(device, main_run: dict, lm_run: dict,
+                    tuned_run: dict | None = None,
                     requests: int = ARTIFACT_REQUESTS,
                     big_batch: int = BIG_BATCH,
                     respecialize: int = RESPECIALIZE,
                     prompts=ARTIFACT_PROMPTS) -> list:
     """A6 on the card: ``main_run``'s session (its batch-1 and
     ``big_batch`` specializations, the source packed), an int8 session on
-    the lowerings (batch 1) and ``lm_run``'s session, each saved and
-    loaded cold in a fresh process (``_cnn_artifact``, ``_lm_artifact``);
-    a copy of the first with one flipped byte must be refused.  All in a
-    temporary directory of the checkout that the phase deletes."""
+    the lowerings (batch 1), ``lm_run``'s session and ``tuned_run``'s
+    measured session (``phase_tuning``, batch 1), each saved and loaded
+    cold in a fresh process (``_cnn_artifact``, ``_lm_artifact``: no
+    search, no calibration probe, the saved ``transform_bw``); a copy of
+    the first with one flipped byte must be refused.  All in a temporary
+    directory of the checkout that the phase deletes."""
     from repro_torch.engine import compile
 
     model, image = main_run["model"], main_run["image"]
@@ -2631,6 +3046,10 @@ def phase_artifacts(device, main_run: dict, lm_run: dict,
         del q8
         lines.append(_lm_artifact(lm_run, lm_run["model"], tmp, device,
                                   prompts))
+        if tuned_run is not None:
+            lines.append(_cnn_artifact(
+                tuned_run["session"], f"{tuned_run['model']}-measured", tmp,
+                xs, device, tuned_run["compile_s"], ["conv2d_nchwc_sm90"]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lines
@@ -2719,6 +3138,9 @@ def main() -> int:
         return latency_only(device, smi)
     if sys.argv[1:] == ["--prefill-only"]:
         return prefill_only(device, smi)
+    if sys.argv[1:] == ["--tuning-only"]:
+        phase_tuning(device, smi)
+        return 0
 
     build = phase_build()
     convs = plan_convs(MODEL, 1, IMAGE)
@@ -2767,10 +3189,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         memory.append(memory_line(f"zoo {m}", device))
-    artifacts = phase_artifacts(device, main_run, lm_runs["mamba2-130m"])
+    tuning = phase_tuning(device, smi)
+    memory.append(memory_line("tuning", device))
+    artifacts = phase_artifacts(device, main_run, lm_runs["mamba2-130m"],
+                                tuning)
     memory.append(memory_line("artifacts", device))
     # release every earlier session before arctic-480b's 55 GB of weights
-    for run in [main_run, *lm_runs.values()]:
+    for run in [main_run, tuning, *lm_runs.values()]:
         run.pop("session")
         run.pop("big_session", None)
     gc.collect()
@@ -2808,7 +3233,11 @@ def main() -> int:
                                     for r in rows),
                 "zoo_launches": {z["model"]: z["launches"] for z in zoo},
                 "artifact_launches_per_predict":
-                artifacts[0]["b1_launches_per_predict"]}]
+                artifacts[0]["b1_launches_per_predict"],
+                "tuning_launches_per_predict": {
+                    f"{t['model']} {t.get('mode', t['phase'])}":
+                    t["b1_per_predict"] for t in tuning["lines"]
+                    if "b1_per_predict" in t}}]
     # B2, B3 and B4: per prefill of the largest bucket (2,048 tokens at
     # batch 1), or for B2's splitk route per batch-1 decode step, i.e. one
     # launch per layer at that shape.  B2's and B4's times are the card's
@@ -2854,7 +3283,7 @@ def main() -> int:
               "lm_main": lm_main, "lm_parity": parity,
               "variants": variants,
               "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e, "zoo": zoo,
-              "artifacts": artifacts,
+              "tuning": tuning["lines"], "artifacts": artifacts,
               "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

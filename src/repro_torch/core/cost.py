@@ -1,17 +1,24 @@
 """Roofline cost model for schedules, transforms, and collectives.
 
-NeoCPU's local search *measures* wall time on the target.  The port ranks
-schedules with the reference's analytical roofline model instead (the
-measured search waits for ROADMAP A5), priced on one ``MachineModel``.
-The model is intentionally coarse — it only has to *rank* schedules the way
-a real measurement would.
+NeoCPU's local search *measures* wall time on the target; the port does too
+(``core.local_search.guided_local_search`` on the card).  This analytical
+roofline model, the reference's, prunes that search's candidates and breaks
+its ties, and ranks schedules alone under ``tuning="roofline"``.  It is
+priced on one ``MachineModel``.  The model is intentionally coarse — it only
+has to *rank* schedules the way a real measurement would.
 
 ``MachineModel.h100()`` takes NVIDIA's published figures for one H100 SXM
 (data sheet and Hopper white paper): fp32 outside the tensor cores, device
-memory bandwidth, the shared memory one block can use as the fast-memory
-budget of ``conv_vmem_bytes``, and NVLink's per-direction bandwidth.  A
-caller holding another machine's figures builds its own ``MachineModel``
-and passes it to ``Pipeline.run``.
+memory bandwidth, the shared memory one block can use, NVLink's
+per-direction bandwidth, and its 132 SMs.  It prices a conv's product in
+the tile of the port's conv kernel (B1, ``kernels/conv2d_nchwc.py``: 64 x
+64 outputs, K in steps of 32), counts the tiles a wave of SMs holds, and
+takes as a conv's working set the shared memory B1's launch stages.  The
+fields' defaults are the reference's matrix unit (8 x 128 tiles, K in steps
+of 8, one core) and its blocked loop nest's working set, so a
+``MachineModel`` of the reference's four figures prices plans exactly as
+the reference does.  ``MachineModel.from_device`` reads the SM count and
+shared memory of the card at hand.
 """
 from __future__ import annotations
 
@@ -21,10 +28,20 @@ from typing import Tuple
 from repro_torch.core.layout import Layout, transform_bytes
 from repro_torch.core.schedule import ConvSchedule, ConvWorkload
 
-# Tile-padding dims of ``mxu_utilization``: inherited from the reference's
-# matrix-unit tiling until the planner slice prices Hopper tiles (ROADMAP A5).
+# The reference's matrix-unit tile: the defaults of ``MachineModel``'s tile
 MXU_DIM = 128
 SUBLANE = 8
+
+# B1's launch (``kernels/conv2d_nchwc.py::_plan``), copied: blocks of a
+# cluster along K at most, k tiles each block of a split keeps at least,
+# pooled outputs a patch has along each axis, and the bytes of one staged
+# tile row (BK fp32 values)
+B1_CS_MAX = 8
+B1_MIN_KT = 4
+B1_POOL_PATCH = 8
+B1_ROW_BYTES = 128
+
+WORKING_SETS = ("blocked_loop", "b1_launch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,14 +52,51 @@ class MachineModel:
     mem_bw: float            # device-memory bytes/s
     link_bw: float           # bytes/s per direction of one inter-chip link
     fast_mem_bytes: int      # on-chip working-set budget of one conv block
+    tile_m: int = SUBLANE    # rows of one product tile (M pads to it)
+    tile_n: int = MXU_DIM    # columns of one product tile (N pads to it)
+    tile_k: int = SUBLANE    # the reduction's step (K pads to it)
+    cores: int = 1           # tiles one wave runs at once
+    # what a conv stages in fast memory: the reference's blocked loop
+    # nest (``conv_vmem_bytes``) or B1's launch (``b1_smem_bytes``)
+    working_set: str = "blocked_loop"
+
+    def __post_init__(self):
+        if self.working_set not in WORKING_SETS:
+            raise ValueError(f"working_set {self.working_set!r} not in "
+                             f"{WORKING_SETS}")
 
     @classmethod
     def h100(cls) -> "MachineModel":
         return cls(peak_flops=67e12, mem_bw=3.35e12, link_bw=450e9,
-                   fast_mem_bytes=232_448)
+                   fast_mem_bytes=232_448, tile_m=64, tile_n=64, tile_k=32,
+                   cores=132, working_set="b1_launch")
+
+    @classmethod
+    def from_device(cls, device) -> "MachineModel":
+        """``h100()`` with the SM count and the shared memory a block may
+        opt into read from ``torch.cuda.get_device_properties``."""
+        import torch
+
+        props = torch.cuda.get_device_properties(device)
+        base = cls.h100()
+        return dataclasses.replace(
+            base, cores=props.multi_processor_count,
+            fast_mem_bytes=getattr(props, "shared_memory_per_block_optin",
+                                   base.fast_mem_bytes))
 
 
 H100 = MachineModel.h100()
+# The lowerings (``use_kernel=False``) run their products on cuBLAS, whose
+# tile the port does not know: a session on them prices its convs on the
+# reference's matrix-unit tile and blocked loop nest, at the H100's rates.
+H100_LOWERINGS = dataclasses.replace(H100, tile_m=SUBLANE, tile_n=MXU_DIM,
+                                     tile_k=SUBLANE, cores=1,
+                                     working_set="blocked_loop")
+
+
+def machine_for(use_kernel: bool) -> MachineModel:
+    """The H100 model of a session's engine: B1's, or the lowerings'."""
+    return H100 if use_kernel else H100_LOWERINGS
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,13 +126,70 @@ class CostBreakdown:
 # Conv schedule cost (feeds the local search)
 # ---------------------------------------------------------------------------
 
-def mxu_utilization(m: int, k: int, n: int) -> float:
+def mxu_utilization(m: int, k: int, n: int,
+                    machine: MachineModel = H100) -> float:
     """Fraction of matrix-unit work that is useful for an (m,k)@(k,n)
-    micro-GEMM.  Dims pad to (sublane, lane) = (8, 128) tiles; K pads to 8."""
-    um = m / _round_up(m, SUBLANE)
-    uk = k / _round_up(k, SUBLANE)
-    un = n / _round_up(n, MXU_DIM)
+    micro-GEMM.  M and N pad to the machine's (tile_m, tile_n) tile, K to
+    its step ``tile_k``: (8, 128) and 8 on the reference's matrix unit,
+    (64, 64) and 32 in B1's wgmma tile on the H100."""
+    um = m / _round_up(m, machine.tile_m)
+    uk = k / _round_up(k, machine.tile_k)
+    un = n / _round_up(n, machine.tile_n)
     return um * uk * un
+
+
+def wave_utilization(wl: ConvWorkload, machine: MachineModel) -> float:
+    """Fraction of the machine's cores the conv's output tiles keep busy:
+    the (batch*oh*ow) x out_channels output in ``tile_m`` x ``tile_n``
+    tiles, run ``cores`` at a time (the last wave part-full).  1.0 on one
+    core."""
+    oh, ow = wl.out_hw
+    tiles = (-(-wl.batch * oh * ow // machine.tile_m)
+             * -(-wl.out_channels // machine.tile_n))
+    return tiles / (-(-tiles // machine.cores) * machine.cores)
+
+
+def b1_smem_bytes(wl: ConvWorkload, machine: MachineModel) -> int:
+    """The dynamic shared memory B1 stages for this conv, as its launch plan
+    lays it out (``kernels/conv2d_nchwc.py::_plan`` and ``smem_bytes``):
+    two stages of hi and lo A and B tiles, three int tables of the tile's
+    rows, the k-offset table of one block's k tiles (K split over a cluster
+    where the output tiles leave SMs idle), a pooled conv's patch of conv
+    pixels (shrunk until it fits, as the launch does), and 1,024 bytes of
+    slack.  It does not depend on the schedule: B1 takes its tile from
+    neither ic_bn nor oc_bn."""
+    bm, bn, bk = machine.tile_m, machine.tile_n, machine.tile_k
+    oh, ow = wl.out_hw
+    kt = -(-(wl.in_channels // wl.groups) * wl.kh * wl.kw // bk)
+
+    def smem(kt_per: int, patch_rows: int) -> int:
+        ring = 2 * (2 * bm * B1_ROW_BYTES + 2 * bn * B1_ROW_BYTES)
+        table = -(-kt_per * bk * 4 // 16) * 16
+        return ring + 3 * bm * 4 + table + patch_rows * (bn + 4) * 4 + 1024
+
+    spec = wl.epilogue_spec()
+    if spec.pool is not None:
+        pool = spec.pool
+        ph, pw = spec.out_hw(oh, ow)
+        pph, ppw = min(B1_POOL_PATCH, ph), min(B1_POOL_PATCH, pw)
+
+        def window(pp):
+            return (pp - 1) * pool.stride + pool.k
+
+        while (smem(kt, window(pph) * window(ppw)) > machine.fast_mem_bytes
+               and (pph, ppw) != (1, 1)):
+            if pph >= ppw:
+                pph = max(1, pph // 2)
+            else:
+                ppw = max(1, ppw // 2)
+        return smem(kt, window(pph) * window(ppw))
+    tiles = (-(-wl.batch * oh * ow // bm)
+             * -(-wl.out_channels // bn))
+    cs = 1
+    while (cs < B1_CS_MAX and tiles * cs * 2 <= machine.cores
+           and kt >= 2 * cs * B1_MIN_KT):
+        cs *= 2
+    return smem(-(-kt // cs), 0)
 
 
 def conv_vmem_bytes(wl: ConvWorkload, s: ConvSchedule) -> int:
@@ -123,16 +234,17 @@ def conv_schedule_cost(wl: ConvWorkload, s: ConvSchedule,
         # one contraction over the stacked kh*kw*ic reduction
         util = mxu_utilization(
             wl.batch * oh * ow if variant == "patch_gemm" else s.ow_bn,
-            khkw * s.ic_bn, s.oc_bn)
+            khkw * s.ic_bn, s.oc_bn, machine)
     else:
-        util = mxu_utilization(s.ow_bn, s.ic_bn, s.oc_bn)
+        util = mxu_utilization(s.ow_bn, s.ic_bn, s.oc_bn, machine)
     # unrolling the (kh, kw) loops trims scalar-loop overhead; model it as a
     # small utilization bonus that decays for large kernels (paper: "in some
     # scenarios unrolling may increase the performance").  scan keeps the
     # tap loop rolled, so it forfeits the bonus.
     if s.unroll_ker and variant != "scan":
         util = min(1.0, util * (1.0 + 0.05 / max(1, khkw / 9)))
-    compute_s = wl.flops / (machine.peak_flops * max(util, 1e-3))
+    compute_s = wl.flops / (machine.peak_flops * max(util, 1e-3)
+                            * wave_utilization(wl, machine))
 
     b = wl.dtype_bytes
     # memory traffic under the blocked loop nest (n, oc_chunk, oh_blk, ic_chunk):
@@ -184,7 +296,10 @@ def conv_schedule_cost(wl: ConvWorkload, s: ConvSchedule,
                 + epi_bytes) / machine.mem_bw
 
     # schedules whose working set spills fast memory pay a heavy penalty
-    if conv_vmem_bytes(wl, s) > machine.fast_mem_bytes:
+    staged = (b1_smem_bytes(wl, machine)
+              if machine.working_set == "b1_launch"
+              else conv_vmem_bytes(wl, s))
+    if staged > machine.fast_mem_bytes:
         memory_s *= 8.0
     return CostBreakdown(compute_s=compute_s, memory_s=memory_s)
 

@@ -5,16 +5,27 @@ combination, and keeps a ranked list; results are memoized in a database
 keyed by the workload (feature-map + kernel sizes) so the same convolution
 appearing in different models is never searched twice.
 
-The port ranks with ``roofline_runner``, the analytical model of
-``core.cost`` priced on a ``MachineModel``.  The measured search on the card
-(the reference's ``measured_runner``, ``guided_local_search`` and
-``ScheduleDatabase.search_measured``) waits for ROADMAP A5.  The database
-keeps the reference's JSON blob format, in a file too, so a database
-written by one package loads in the other.
+The scoring signal is pluggable, as in the reference:
+
+* ``roofline_runner`` (default) — the analytical model of ``core.cost``
+  priced on a ``MachineModel``; deterministic and fast.
+* ``measured_runner`` — the time of what the session runs, on the session's
+  device (``core.calibrate.timed_seconds``): with ``use_kernel`` the conv
+  kernel (B1) with the workload's fused epilogue, otherwise the schedule's
+  lowering (``kernels/ops.py::conv2d_lowered``), each behind the pad of its
+  blocked input.  ``guided_local_search`` prunes with the model and ranks
+  the survivors with it (the paper's §3.3.1 on the target).
+
+The database keeps the reference's JSON blob format, in a file too, so a
+database written by one package loads in the other.  Entries measured on
+B1 are keyed apart (``B1_KEY``): B1 ignores a schedule's lowering variant,
+so its ranking says nothing of a lowering, and the reference never builds
+such a key.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
@@ -25,10 +36,18 @@ from repro_torch.core.schedule import (ConvSchedule, ConvWorkload,
 
 Runner = Callable[[ConvWorkload, ConvSchedule], float]
 
+# Two schedules whose measured times are within this relative tolerance
+# are ties: guided search breaks them with the analytical model instead of
+# the noise, so the winner does not hang on jitter.
+MEASURE_NOISE_FLOOR = 0.02
+
+# Suffix of the database key of an entry measured on B1 (``use_kernel``)
+B1_KEY = "_b1"
+
 # Process-wide spy: how many actual searches (not memo hits) have run.  A
 # session loaded from a saved artifact must go load -> predict without any
 # schedule search; tests and chip_smoke.py's artifacts phase assert on it.
-SEARCH_COUNTERS = {"local_search": 0}
+SEARCH_COUNTERS = {"local_search": 0, "guided_local_search": 0}
 
 
 def search_calls() -> int:
@@ -42,6 +61,73 @@ def roofline_runner(wl: ConvWorkload, s: ConvSchedule,
     return conv_schedule_cost(wl, s, machine).total_s
 
 
+@functools.lru_cache(maxsize=1)
+def _raw_operands(wl: ConvWorkload, device: str) -> tuple:
+    """Random NCHW input and KCRS weight of ``wl`` on ``device``, drawn
+    once for all the candidates of one workload (``guided_local_search``
+    clears it when its measurements are done)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    cin = wl.in_channels // wl.groups
+    x = torch.randn((wl.batch, cin, wl.height, wl.width), generator=g,
+                    device=device)
+    w = torch.randn((wl.out_channels, cin, wl.kh, wl.kw), generator=g,
+                    device=device)
+    return x, w
+
+
+def measured_runner(wl: ConvWorkload, s: ConvSchedule, repeats: int = 3,
+                    device="cuda", use_kernel: bool = True) -> float:
+    """Seconds per call of the conv the session runs for ``wl`` under
+    ``s``, on ``device``: the input blocked as ``s`` says, the weight as
+    the session binds it (int8 codes with the dequantize scale on the
+    epilogue, or panel-major for the patch_gemm lowering), the fused
+    epilogue's operands, then ``kernels/ops.py::conv2d_block_blocked``
+    (the pad of the blocked input, then B1 or the lowering), timed by
+    ``core.calibrate.timed_seconds`` (the card's own time on the card,
+    the host clock over the plain versions on the CPU)."""
+    import torch
+
+    from repro_torch.core.calibrate import timed_seconds
+    from repro_torch.core.layout import kernel_to_kcrs_ck, to_nchwc
+    from repro_torch.core.quantize import quantize_per_channel
+    from repro_torch.kernels.ops import (conv2d_block_blocked,
+                                         prelay_patch_gemm_weight)
+
+    device = str(torch.device(device))
+    x, w = _raw_operands(wl, device)
+    ko = wl.out_channels // s.oc_bn
+    oh, ow = wl.out_hw
+    scale = shift = residual = out_buf = None
+    if s.dtype == "int8":
+        wq, w_scale = quantize_per_channel(w.cpu().numpy(), axis=0)
+        w = torch.from_numpy(wq).to(device)
+        scale = torch.from_numpy(w_scale).to(device).reshape(ko, s.oc_bn)
+    xb = to_nchwc(x, s.ic_bn)
+    wb = kernel_to_kcrs_ck(w, s.ic_bn, s.oc_bn)
+    prelaid = not use_kernel and s.resolved_variant() == "patch_gemm"
+    if prelaid:
+        wb = prelay_patch_gemm_weight(wb)
+    if wl.fused_bn:
+        shift = torch.randn((ko, s.oc_bn), device=device)
+    if wl.fused_residual:
+        residual = torch.randn((wl.batch, ko, oh, ow, s.oc_bn),
+                               device=device)
+    spec = wl.epilogue_spec()
+    if spec.writes_concat:
+        poh, pow_ = wl.pooled_out_hw
+        out_buf = torch.zeros((wl.batch, wl.concat_total // s.oc_bn, poh,
+                               pow_, s.oc_bn), device=device)
+    pad = wl.pad if wl.pad_w < 0 else (wl.pad, wl.pw)
+    return timed_seconds(
+        lambda: conv2d_block_blocked(
+            xb, wb, scale, shift, residual, out_buf, stride=wl.stride,
+            pad=pad, epilogue=spec, schedule=s, use_kernel=use_kernel,
+            w_prelaid=prelaid),
+        repeats, device)
+
+
 @dataclasses.dataclass(frozen=True)
 class RankedSchedule:
     schedule: ConvSchedule
@@ -52,8 +138,11 @@ class RankedSchedule:
 class LocalSearchResult:
     """Ascending-cost list of schedules for one workload (§3.3.1 step 4).
 
-    ``measured`` and ``search_budget`` mark wall-clock rankings in the
-    reference's database format; the port's own rankings are analytical."""
+    ``measured`` distinguishes measured rankings from analytical ones:
+    their costs live on different clocks, and only measured entries may
+    satisfy a ``search_measured`` request.  ``search_budget`` records the
+    (top_k, per_variant) a measured ranking was produced with, so a
+    shallow entry does not satisfy a deeper request."""
 
     workload: ConvWorkload
     ranked: List[RankedSchedule]
@@ -82,13 +171,90 @@ class LocalSearchResult:
         return out
 
 
-def local_search(wl: ConvWorkload, runner: Runner = roofline_runner
-                 ) -> LocalSearchResult:
+def local_search(wl: ConvWorkload, runner: Runner = roofline_runner,
+                 max_candidates: int = 0) -> LocalSearchResult:
     SEARCH_COUNTERS["local_search"] += 1
-    cands = candidate_schedules(wl)
+    cands = candidate_schedules(wl, max_candidates=max_candidates)
     scored = [RankedSchedule(s, runner(wl, s)) for s in cands]
     scored.sort(key=lambda r: (r.cost_s, r.schedule))
     return LocalSearchResult(workload=wl, ranked=scored)
+
+
+def guided_local_search(wl: ConvWorkload, top_k: int = 6,
+                        max_candidates: int = 0,
+                        per_variant: int = 2,
+                        repeats: int = 3, *,
+                        machine: MachineModel = H100, device="cuda",
+                        use_kernel: bool = True) -> LocalSearchResult:
+    """The paper's measure-on-target methodology, made affordable: the
+    roofline model (on ``machine``) prunes the space, ``measured_runner``
+    on ``device`` ranks the survivors.
+
+    The shortlist is the roofline top-``top_k`` plus the best
+    ``per_variant`` candidates of every ``(lowering variant, dtype)`` pair
+    of the enumeration, deduped by what the measurement runs: on the
+    lowerings ``(ic_bn, oc_bn, variant, dtype)``, as in the reference; on
+    B1 (``use_kernel``), which takes its tile from neither the variant nor
+    the tile knobs, ``(ic_bn, oc_bn, dtype)``.
+
+    Measured costs within ``MEASURE_NOISE_FLOOR`` of the winner are ties:
+    that group is re-ranked by the analytical model on ``(total_s,
+    memory_s, schedule)``, so the winner is deterministic instead of a
+    jitter coin flip."""
+    SEARCH_COUNTERS["guided_local_search"] += 1
+
+    pruned = local_search(wl, functools.partial(roofline_runner,
+                                                machine=machine),
+                          max_candidates)
+    short: List[ConvSchedule] = []
+    seen = set()
+
+    def _add(s: ConvSchedule) -> bool:
+        key = ((s.ic_bn, s.oc_bn, s.dtype) if use_kernel
+               else (s.ic_bn, s.oc_bn, s.resolved_variant(), s.dtype))
+        if key in seen:
+            return False
+        seen.add(key)
+        short.append(s)
+        return True
+
+    for r in pruned.ranked:
+        if len(short) >= top_k:
+            break
+        _add(r.schedule)
+    axes = sorted({(r.schedule.resolved_variant(), r.schedule.dtype)
+                   for r in pruned.ranked})
+    for variant, dtype in axes:
+        n_have = sum(1 for s in short
+                     if s.resolved_variant() == variant and s.dtype == dtype)
+        for r in pruned.ranked:
+            if n_have >= per_variant:
+                break
+            if (r.schedule.resolved_variant() == variant
+                    and r.schedule.dtype == dtype and _add(r.schedule)):
+                n_have += 1
+    scored = [RankedSchedule(s, measured_runner(
+        wl, s, repeats=repeats, device=device, use_kernel=use_kernel))
+        for s in short]
+    _raw_operands.cache_clear()
+    floor = min(r.cost_s for r in scored) * (1.0 + MEASURE_NOISE_FLOOR)
+
+    def _rank(r: RankedSchedule):
+        if r.cost_s <= floor:   # tied with the winner: analytical tiebreak
+            cost = conv_schedule_cost(wl, r.schedule, machine)
+            return (0, cost.total_s, cost.memory_s, r.schedule)
+        return (1, r.cost_s, 0.0, r.schedule)
+
+    scored.sort(key=_rank)
+    return LocalSearchResult(workload=wl, ranked=scored, measured=True,
+                             search_budget=(top_k, per_variant))
+
+
+def ties(result: LocalSearchResult) -> int:
+    """How many schedules of a measured ranking the analytical tie-break
+    ordered: those within ``MEASURE_NOISE_FLOOR`` of the fastest."""
+    floor = min(r.cost_s for r in result.ranked) * (1.0 + MEASURE_NOISE_FLOOR)
+    return sum(1 for r in result.ranked if r.cost_s <= floor)
 
 
 # ---------------------------------------------------------------------------
@@ -129,8 +295,8 @@ class ScheduleDatabase:
     databases are meant for measured results (short shortlists); give
     analytical searches an in-memory database (the default).
 
-    The memo does not key on the machine: give each ``MachineModel`` its
-    own database."""
+    The memo does not key on the machine or the device: give each its own
+    database."""
 
     def __init__(self, path: Optional[Path] = None) -> None:
         self.path = Path(path) if path else None
@@ -138,11 +304,36 @@ class ScheduleDatabase:
         if self.path and self.path.exists():
             self._load()
 
-    def search(self, wl: ConvWorkload, runner: Runner = roofline_runner
+    def search(self, wl: ConvWorkload, runner: Runner = roofline_runner,
+               max_candidates: int = 0, use_kernel: bool = False
                ) -> LocalSearchResult:
+        """The memo's entry for ``wl``, searched with ``runner`` on a miss.
+        With ``use_kernel`` an entry measured on B1 comes first."""
+        if use_kernel and _wl_key(wl) + B1_KEY in self._mem:
+            return self._mem[_wl_key(wl) + B1_KEY]
         key = _wl_key(wl)
         if key not in self._mem:
-            self._mem[key] = local_search(wl, runner)
+            self._mem[key] = local_search(wl, runner, max_candidates)
+            if self.path:
+                self._save()
+        return self._mem[key]
+
+    def search_measured(self, wl: ConvWorkload, top_k: int = 6,
+                        per_variant: int = 2, repeats: int = 3, *,
+                        machine: MachineModel = H100, device="cuda",
+                        use_kernel: bool = True) -> LocalSearchResult:
+        """Memoized ``guided_local_search``, keyed by the engine it measured
+        (B1 under ``B1_KEY``, the lowerings under the reference's key).  An
+        existing entry does not satisfy the request if it is analytical or
+        was measured with a shallower budget."""
+        key = _wl_key(wl) + (B1_KEY if use_kernel else "")
+        have = self._mem.get(key)
+        if (have is None or not have.measured
+                or have.search_budget[0] < top_k
+                or have.search_budget[1] < per_variant):
+            self._mem[key] = guided_local_search(
+                wl, top_k=top_k, per_variant=per_variant, repeats=repeats,
+                machine=machine, device=device, use_kernel=use_kernel)
             if self.path:
                 self._save()
         return self._mem[key]

@@ -15,15 +15,16 @@ Passes:
     FuseConcatWrites  §3.1 — rewrite DenseNet concats into shared-buffer
                       channel-offset writes (core.fusion phase 2)
     LocalTune         §3.3.1 — per-workload schedule search into the
-                      ScheduleDatabase (roofline or cached)
+                      ScheduleDatabase (roofline, cached, or measured)
     GlobalLayoutPlan  §3.3.2 — assign (ic_bn, oc_bn) schemes: the DP/PBQP
                       scheme search, the paper's uniform-x ablation, or the
                       unblocked NCHW baseline
     TransformElim     §3.2 — rewrite the graph with layout transforms only
                       at category boundaries
 
-``Pipeline.preset(mode)`` reproduces the Table-3 ``MODES`` ladder exactly.
-The passes are the JAX reference's, priced on a ``core.cost.MachineModel``
+``Pipeline.preset(mode)`` reproduces the Table-3 ``MODES`` ladder exactly;
+``core.planner.plan(mode=...)`` is a thin deprecated shim over it.  The
+passes are the JAX reference's, priced on a ``core.cost.MachineModel``
 (``MachineModel.h100()`` by default): fed the reference's machine figures,
 the port emits the reference's plan.
 
@@ -344,9 +345,14 @@ class PipelineState:
     input_shapes: Dict[str, Tuple[int, ...]]
     db: ScheduleDatabase
     machine: MachineModel = H100
-    tuning: str = "roofline"            # "roofline" | "cached"
+    tuning: str = "roofline"            # "roofline" | "cached" | "measured"
     quantize: bool = False              # enumerate int8 schedules per conv
     transform_bw: Optional[float] = None
+    search_budget: Tuple[int, int, int] = (6, 2, 3)  # top_k, per_variant, reps
+    # what measured tuning times: where, and on which engine (B1, or the
+    # schedules' lowerings)
+    device: Any = "cuda"
+    use_kernel: bool = True
     locals_: Dict[str, LocalSearchResult] = dataclasses.field(
         default_factory=dict)
     schedules: Dict[str, ConvSchedule] = dataclasses.field(
@@ -406,7 +412,10 @@ class LocalTune(Pass):
     ``ScheduleDatabase``.  The state's ``tuning`` picks the signal:
     ``"roofline"``/``"cached"`` rank with the analytical model on the
     state's machine (``cached`` differs only in intent — the database is
-    expected to arrive pre-populated, so nothing new is searched)."""
+    expected to arrive pre-populated, e.g. from a saved artifact, so
+    nothing new is searched); ``"measured"`` runs the guided
+    roofline-pruned search, timed on the state's device and engine.  A B1
+    state reads an entry measured on B1 before the reference's key."""
 
     name = "local-tune"
 
@@ -416,7 +425,16 @@ class LocalTune(Pass):
         for node in state.graph.conv_nodes():
             wl = make_workload(node, state.graph.nodes[node.inputs[0]].shape,
                                quantize=state.quantize)
-            state.locals_[node.name] = state.db.search(wl, runner=runner)
+            if state.tuning == "measured":
+                top_k, per_variant, repeats = state.search_budget
+                res = state.db.search_measured(
+                    wl, top_k=top_k, per_variant=per_variant,
+                    repeats=repeats, machine=state.machine,
+                    device=state.device, use_kernel=state.use_kernel)
+            else:
+                res = state.db.search(wl, runner=runner,
+                                      use_kernel=state.use_kernel)
+            state.locals_[node.name] = res
         return {"n_convs": len(state.locals_),
                 "n_new_workloads": len(state.db) - n_before,
                 "n_measured": sum(1 for r in state.locals_.values()
@@ -430,10 +448,11 @@ class GlobalLayoutPlan(Pass):
              "uniform" — the paper's constant-x ablation (rows 2-3)
              "none"    — unblocked NCHW baseline (row 1)
 
-    Measured local results (a database loaded from the reference) need a
-    measured copy bandwidth to price edges on their clock: without a
-    ``transform_bw`` the pass raises, because the calibration probe waits
-    for ROADMAP A5.
+    Under measured or cached tuning, when the local results are measured
+    and no ``transform_bw`` was given, the relayout bandwidth of the
+    state's device is calibrated with a one-shot probe
+    (``core.calibrate``), so edge and node costs live on one clock; the
+    figure is process-cached and recorded in the report and the artifact.
     """
 
     name = "global-layout"
@@ -451,12 +470,13 @@ class GlobalLayoutPlan(Pass):
         stats: Dict[str, Any] = {"strategy": self.strategy}
         # gated on tuning intent, as in the reference: a roofline-tuned run
         # keeps the memory-roofline clock whatever the database holds
-        if (state.tuning == "cached"
+        if (state.tuning in ("measured", "cached")
                 and state.transform_bw is None
                 and any(r.measured for r in state.locals_.values())):
-            raise NotImplementedError(
-                "measured schedules need a measured transform bandwidth; "
-                "pass transform_bw (the calibration probe is ROADMAP A5)")
+            from repro_torch.core import calibrate
+            state.transform_bw = calibrate.measure_host_copy_bw(
+                device=state.device)
+            stats["transform_bw_auto"] = round(state.transform_bw)
         if self.strategy == "none":
             state.schedules = {}
             # unblocked direct conv: whole-channel "blocks", no output-width
@@ -568,16 +588,17 @@ class Pipeline:
             tuning: str = "roofline",
             quantize: bool = False,
             transform_bw: Optional[float] = None,
-            machine: MachineModel = H100) -> Plan:
+            machine: MachineModel = H100,
+            search_budget: Tuple[int, int, int] = (6, 2, 3),
+            device="cuda", use_kernel: bool = True) -> Plan:
         # transform_bw: bytes/s the executing device moves a layout
         # transform at.  None keeps the machine's memory roofline
-        # (consistent with roofline node costs).
+        # (consistent with roofline node costs) unless the local results
+        # are measured, in which case GlobalLayoutPlan calibrates it on
+        # ``device``.  ``device`` and ``use_kernel`` say what measured
+        # tuning times: the session's device and engine.
         if tuning not in TUNINGS:
             raise ValueError(f"tuning {tuning!r} not in {TUNINGS}")
-        if tuning == "measured":
-            raise NotImplementedError(
-                "tuning='measured' (the measured schedule search on the "
-                "card) waits for ROADMAP A5; use 'roofline' or 'cached'")
         graph.infer_shapes(input_shapes)
         # NOT `db or ...`: an *empty* caller database is still the caller's
         # memo — `or` would silently swap in a throwaway one and the shared
@@ -585,7 +606,9 @@ class Pipeline:
         state = PipelineState(graph=graph, input_shapes=dict(input_shapes),
                               db=db if db is not None else ScheduleDatabase(),
                               machine=machine, tuning=tuning,
-                              quantize=quantize, transform_bw=transform_bw)
+                              quantize=quantize, transform_bw=transform_bw,
+                              search_budget=tuple(search_budget),
+                              device=device, use_kernel=use_kernel)
         t_start = time.perf_counter()
         pass_reports: List[PassReport] = []
         for p in self.passes:

@@ -78,7 +78,7 @@ import torch
 
 from repro_torch.checkpoint.store import (CheckpointStore, dir_checksums,
                                           sha256_file)
-from repro_torch.core.cost import H100, MachineModel
+from repro_torch.core.cost import MachineModel, machine_for
 from repro_torch.core.graph import Graph
 from repro_torch.core.layout import Layout, LayoutKind
 from repro_torch.core.local_search import ScheduleDatabase
@@ -383,7 +383,10 @@ class InferenceSession:
     cannot plan new batch sizes.  Artifacts saved with
     ``include_source=True`` (the default when the session has its graph)
     also pack the logical graph + raw weights, so the loaded session can
-    specialize unseen batch sizes (on its ``machine``).
+    specialize unseen batch sizes (on its ``machine``).  Under
+    ``tuning="measured"`` a specialization searches on the session's
+    ``device`` and engine, and the relayout bandwidth it calibrates is
+    kept in ``transform_bw`` for later batch sizes and the artifact.
 
     ``specialize`` is thread-safe: concurrent requests for the same new
     batch size compile it exactly once."""
@@ -396,11 +399,12 @@ class InferenceSession:
                  tuning: str = "roofline",
                  transform_bw: Optional[float] = None,
                  search_budget: Tuple[int, int, int] = (6, 2, 3),
-                 machine: MachineModel = H100,
+                 machine: Optional[MachineModel] = None,
                  dispatch: str = "whole",
                  dtype: str = "fp32",
                  use_kernel: bool = True,
-                 model_name: Optional[str] = None) -> None:
+                 model_name: Optional[str] = None,
+                 device="cuda") -> None:
         if dtype not in SESSION_DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {SESSION_DTYPES}")
         if dtype == "int8" and use_kernel:
@@ -415,10 +419,12 @@ class InferenceSession:
         self.db = db if db is not None else ScheduleDatabase()
         self.tuning = tuning
         self.transform_bw = transform_bw
-        # the measured search's budget (ROADMAP A5); carried through
-        # artifacts so a reference artifact's survives a round trip
+        # the measured search's (top_k, per_variant, repeats); carried
+        # through artifacts so a reference artifact's survives a round trip
         self.search_budget = tuple(search_budget)
-        self.machine = machine
+        self.machine = machine or machine_for(use_kernel)
+        # where the weights live, the model runs and measured tuning times
+        self.device = torch.device(device)
         self.dispatch = dispatch
         # "int8": specializations enumerate quantized schedules; the search
         # decides per conv, so the bound plan may be mixed-precision
@@ -474,7 +480,14 @@ class InferenceSession:
             plan = self.pipeline.run(
                 self._graph, self._shapes_for(batch), db=self.db,
                 tuning=self.tuning, quantize=(self.dtype == "int8"),
-                transform_bw=self.transform_bw, machine=self.machine)
+                transform_bw=self.transform_bw, machine=self.machine,
+                search_budget=self.search_budget, device=self.device,
+                use_kernel=self.use_kernel)
+            if (plan.report is not None
+                    and plan.report.transform_bw is not None):
+                # calibrated once (measured tuning); reused by later
+                # specializations and kept in the saved artifact
+                self.transform_bw = plan.report.transform_bw
             m = compile_model(plan, self._params, dispatch=self.dispatch,
                               use_kernel=self.use_kernel)
             self._specialized[batch] = m
@@ -671,8 +684,8 @@ class InferenceSession:
         search, no weight transformation happens.  Older versions migrate;
         future versions are refused.  If the artifact packs its source,
         the loaded session is not frozen and may specialize unseen batch
-        sizes on the H100 machine model.  ``devices`` other than 1 waits
-        for the multi-chip slice (ROADMAP A10)."""
+        sizes on the H100 machine model of its engine.  ``devices`` other
+        than 1 waits for the multi-chip slice (ROADMAP A10)."""
         path = Path(path)
         refuse_devices(devices)
         manifest = read_manifest(path)
@@ -709,7 +722,7 @@ class InferenceSession:
                    dtype=(manifest.get("quantized") or {}).get("dtype",
                                                                "fp32"),
                    use_kernel=bool(manifest.get("use_pallas", False)),
-                   model_name=manifest.get("model"))
+                   model_name=manifest.get("model"), device=device)
         store = CheckpointStore(path / "weights")
         specs = manifest.get("specializations")
         if not isinstance(specs, dict):
@@ -760,7 +773,9 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
             tuning: str = "roofline",
             pipeline: Optional[Pipeline] = None,
             db: Union[ScheduleDatabase, str, Path, None] = None,
-            machine: MachineModel = H100,
+            transform_bw: Optional[float] = None,
+            search_budget: Tuple[int, int, int] = (6, 2, 3),
+            machine: Optional[MachineModel] = None,
             seed: int = 0,
             dispatch: str = "whole",
             device="cuda",
@@ -780,13 +795,26 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
     params      logical parameters on ``device`` (default: ``init_params``
                 drawn from ``seed``, the reference's draws)
     tuning      "roofline" — analytical schedule ranking (default);
-                "cached"   — reuse what the schedule database holds,
-                             analytical for misses
+                "cached"   — reuse what the schedule database holds
+                             (e.g. measured winners of another session),
+                             analytical for misses, never measures;
+                "measured" — the guided search (``core.local_search``):
+                             the model prunes, the convs the session runs
+                             are timed on ``device`` (B1 or the
+                             lowerings), and ``transform_bw`` is
+                             calibrated on the same clock
     pipeline    a ``core.pipeline.Pipeline``; default is the full ladder
                 (``Pipeline.preset("fusion")``)
     db          schedule database instance, or the path of a persisted one
                 (read as a snapshot: the session never writes the file)
-    machine     the ``MachineModel`` plans are priced on (H100 default)
+    transform_bw  bytes/s a layout transform moves at on ``device``, the
+                price of a plan's edges (default: the machine's memory
+                rate, or the probe's under measured or cached tuning over
+                measured entries)
+    search_budget  measured tuning's (top_k, per_variant, repeats)
+    machine     the ``MachineModel`` plans are priced on (default
+                ``core.cost.machine_for(use_kernel)``: the H100 with B1's
+                tile, or with the reference's for the lowerings)
     device      where parameters live and the model runs: "cuda" (default)
                 launches the hand-written kernels; "cpu" runs their plain
                 versions
@@ -872,9 +900,10 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
     sess = InferenceSession(
         graph=graph, base_shapes=shapes, params=params,
         pipeline=pipeline or Pipeline.preset("fusion"), db=db,
-        tuning=tuning, machine=machine,
+        tuning=tuning, transform_bw=transform_bw,
+        search_budget=search_budget, machine=machine,
         dispatch=dispatch, dtype=dtype, use_kernel=use_kernel,
-        model_name=model_name)
+        model_name=model_name, device=device)
     if eager:
         sess.specialize(next(iter(shapes.values()))[0])
     return sess

@@ -104,9 +104,9 @@ def test_compile_rejects_what_it_cannot_run():
         t_compile("resnet-18", (1, 3, 32, 16), device="cpu")
     with pytest.raises(ValueError, match="NCHW"):
         t_compile("resnet-18", (1, 3, 32), device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="tuning"):
         t_compile("resnet-18", (1, 3, 32, 32), device="cpu",
-                  tuning="measured")
+                  tuning="guess")
     sess = t_compile("resnet-18", (1, 3, 32, 32), device="cpu")
     with pytest.raises(ValueError, match="dispatch"):
         CompiledModel(plan=sess.plan_for(1), params={}, dispatch="jit")
@@ -146,41 +146,3 @@ def test_chip_smoke_main_phase_on_the_lowerings_runs_on_cpu(dtype):
     assert sum(out["lowering_calls"].values()) == 2 * 53
     assert (dtype == "int8") == any(k.endswith("/int8")
                                     for k in out["lowering_calls"])
-
-
-def test_chip_smoke_artifacts_phase_runs_on_cpu():
-    """chip_smoke's ``artifacts`` phase at a tiny size, its child
-    processes included: resnet-18 at 32 (batch 1 and 2, the source
-    packed, an unseen batch 3 re-planned, a corrupt copy refused), its
-    int8 session on the lowerings, and a reduced bf16 mamba2, each loaded
-    in a fresh process with bit-identical outputs and leaves and no
-    schedule search."""
-    import dataclasses
-    import importlib.util
-    from pathlib import Path
-
-    from repro_torch.configs import ARCHS, reduced
-
-    root = Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    main = smoke.phase_main("cpu", image=32, requests=1, big_batch=2,
-                            model="resnet-18")
-    cfg = dataclasses.replace(reduced(ARCHS["mamba2-130m"]), dtype="bfloat16")
-    lm = smoke.phase_lm_main("cpu", cfg, max_len=32, requests=((32, 1),),
-                             big=(2, 16, 8, 2))
-    lines = smoke.phase_artifacts("cpu", main, lm, requests=2, big_batch=2,
-                                  respecialize=3,
-                                  prompts=((32, 1), (20, 3)))
-    cnn, q8, ssm = lines
-    assert cnn["batches"] == [1, 2] and cnn["search_calls"] == 0
-    assert cnn["requests"] == [1, 1, 2] and cnn["files"] > 0
-    assert cnn["respecialized"]["bit_identical"]
-    assert "sha256" in cnn["corrupt_copy_refused"]["error"]
-    assert q8["quantized_json"] and q8["dtype"] == "int8"
-    assert q8["lowerings_per_predict"] == [20, 20]
-    assert ssm["tokens_equal"] and ssm["dtype"] == "bfloat16"
-    assert all(line["rebuild_s"] == 0.0 for line in lines)
-    assert not list(root.glob(".artifacts-*"))

@@ -19,6 +19,7 @@ from repro.core.schedule import ConvWorkload as RWorkload
 from repro.core.schedule import candidate_schedules as r_candidates
 from repro.engine.session import _plan_to_json as r_plan_json
 from repro.models.cnn import build as r_build
+from repro_torch.core import calibrate
 from repro_torch.core import cost as t_cost
 from repro_torch.core.local_search import ScheduleDatabase as TDatabase
 from repro_torch.core.pipeline import MODES as T_MODES
@@ -81,9 +82,16 @@ def test_h100_machine_plans_every_conv_blocked():
 
 
 def test_measured_tuning_waits():
+    """Measured tuning plans (on the CPU here, on the plain versions), with
+    every conv's ranking measured and the copy bandwidth probed; unknown
+    tunings and modes are refused."""
     g, s = t_build("resnet-18", batch=1, image=32)
-    with pytest.raises(NotImplementedError, match="A5"):
-        TPipeline.preset("fusion").run(g, s, tuning="measured")
+    plan = TPipeline.preset("fusion").run(g, s, tuning="measured",
+                                          search_budget=(1, 1, 1),
+                                          device="cpu")
+    tune = {p.name: p.stats for p in plan.report.passes}["local-tune"]
+    assert tune["n_measured"] == tune["n_convs"] == 20
+    assert plan.report.transform_bw > 0
     with pytest.raises(ValueError):
         TPipeline.preset("fusion").run(g, s, tuning="guess")
     with pytest.raises(ValueError):
@@ -92,7 +100,8 @@ def test_measured_tuning_waits():
 
 def test_cached_tuning_on_measured_entries_needs_a_copy_bandwidth():
     """A database carrying the reference's measured rankings prices edges
-    on a measured clock; without one the port refuses to mix clocks."""
+    on a measured clock: without a given one the port probes the device's
+    relayout bandwidth (``core.calibrate``), once per process."""
     g, s = t_build("resnet-18", batch=1, image=32)
     db = TDatabase()
     TPipeline.preset("fusion").run(g, s, db=db)
@@ -101,8 +110,10 @@ def test_cached_tuning_on_measured_entries_needs_a_copy_bandwidth():
         rec["measured"] = True
     measured = TDatabase()
     measured.load_blob(blob)
-    with pytest.raises(NotImplementedError, match="transform_bw"):
-        TPipeline.preset("fusion").run(g, s, db=measured, tuning="cached")
+    probed = TPipeline.preset("fusion").run(g, s, db=measured,
+                                            tuning="cached", device="cpu")
+    assert probed.report.transform_bw == \
+        calibrate.measure_host_copy_bw(device="cpu")
     plan = TPipeline.preset("fusion").run(g, s, db=measured, tuning="cached",
                                           transform_bw=1e11)
     assert plan.report.transform_bw == 1e11
