@@ -144,6 +144,28 @@ Phases, each a function of a device and a size:
                 ``ArtifactCorruptError``.  One line an artifact: save
                 seconds, bytes and files, the child's start, load and
                 first-predict seconds beside ``compile_s``.
+11. serving   — A7 on the card (``phase_serving``): phase 3's ResNet-50
+                session behind ``AsyncServer`` (every batch through the
+                batch-8 plan, each worker on its own CUDA stream):
+                ``load`` — 64 requests of 1-3 rows from 4 client threads,
+                paired rounds of sequential ``padded_predict``, the server
+                at 1 and 2 workers and nearest-bucket sequential, with
+                requests/s, p50/p99 and the card's idle share from a trace;
+                ``chaos`` — a killed worker, two failed batches and one
+                stalled past the watchdog; ``trace`` — a bursty trace of
+                96 requests in three priority classes replayed in real
+                time, packed earliest-deadline-first; ``stream`` — 4
+                mamba2-130m prompts of 512-1,056 tokens, each prefilled
+                at its bucket, streamed through ``submit_stream`` (time to
+                first token, time per token); ``startup`` — the
+                ResNet-50 artifact of phase 10 served from a fresh process
+                (under 30 s from the spawn to the first response);
+                ``fleet`` — ResNet-50 and VGG-16 tenants of a
+                ``FleetServer`` under a memory budget that evicts.  Every
+                response must be bit-identical to ``padded_predict`` at
+                its bucket, streamed tokens equal ``generate``'s, B1
+                launch 53 times a served batch (sm90) and B4 24 times a
+                streamed prefill; nothing may fail outside the chaos step.
                 The earlier models' sessions are released before
                 arctic-480b's phases, and each phase prints the card's
                 peak allocated memory.
@@ -163,7 +185,11 @@ and the card's time per 2,048-token prefill.
 
     python3 chip_smoke.py --tuning-only
 
-runs the tuning phase alone.
+runs the tuning phase alone, and
+
+    python3 chip_smoke.py --serving-only
+
+the serving phase alone, on sessions it compiles itself.
 
 Run with no arguments, it prints one JSON line per item, the card's
 ``nvidia-smi`` name and power limit, the kernels' summary line, and as its
@@ -2689,10 +2715,11 @@ def _same(a: list, b: list) -> bool:
 
 def run_child(art: Path, work: Path, device, job: dict) -> dict:
     """Load ``art`` in a fresh ``python3 chip_smoke.py --load-artifact``
-    process on ``device`` and run ``job`` there (``load_artifact``); the
-    inputs and outputs cross as .npy files in ``work``, the child's
-    measurements as ``result.json``.  ``start_s`` is the time from the
-    spawn to a ready CUDA context (Python, torch, the context)."""
+    process on ``device`` and run
+    ``job`` there (``load_artifact``); the inputs and outputs cross as .npy
+    files in ``work``, the child's measurements as ``result.json``.
+    ``start_s`` is the time from the spawn to a ready CUDA context (Python,
+    torch, the context)."""
     (work / "job.json").write_text(json.dumps(job))
     t0 = time.time()
     proc = subprocess.run(
@@ -2716,7 +2743,9 @@ def load_artifact(argv: list) -> int:
     through the loaded session with every count set to 0 just before, and
     writes the outputs and ``result.json`` into WORK.  ``load_s`` holds
     the check that the job's kernels are built, and ``rebuild_s`` any
-    build that check had to run."""
+    build that check had to run.  A ``"serve"`` job answers its one
+    request through an ``AsyncServer`` started on the loaded session
+    (``serve_artifact``)."""
     art, work, device = Path(argv[0]), Path(argv[1]), torch.device(argv[2])
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2742,6 +2771,10 @@ def load_artifact(argv: list) -> int:
            "searches_at_load": search_calls()}
     fns = _kernel_fns()
     reset_counts()
+    if job["kind"] == "serve":
+        out.update(serve_artifact(sess, work, job))
+        (work / "result.json").write_text(json.dumps(out))
+        return 0
     lowered0 = lowering_calls()
     per_request, lowered, first_s = [], [], None
     if lm:
@@ -2807,6 +2840,31 @@ def load_artifact(argv: list) -> int:
     return 0
 
 
+def serve_artifact(sess, work: Path, job: dict) -> dict:
+    """The serving child's job: an ``AsyncServer`` on the loaded session
+    (``server_s`` to start it), its first response (``first_s``; the wall
+    clock at its arrival, ``t_first``) and the launches of that
+    request."""
+    from repro_torch.core.local_search import search_calls
+    from repro_torch.engine import AsyncServer, DynamicBatchPolicy
+
+    b = job["bucket"]
+    policy = DynamicBatchPolicy(max_batch=b, max_wait_ms=2.0, fixed_bucket=b)
+    t0 = time.perf_counter()
+    srv = AsyncServer(sess, policy)
+    server_s = time.perf_counter() - t0
+    x = np.load(work / job["inputs"][0])
+    t0 = time.perf_counter()
+    y = srv.predict(x, timeout=CHILD_TIMEOUT_S)
+    first_s = time.perf_counter() - t0
+    t_first = time.time()
+    launches = read_counts()
+    np.save(work / "y0_0.npy", y.cpu().numpy())
+    srv.close()
+    return {"server_s": server_s, "first_s": first_s, "t_first": t_first,
+            "launches": launches, "searches": search_calls()}
+
+
 def _expect_corrupt(bad: Path, device) -> str:
     """Loading ``bad`` must raise ``ArtifactCorruptError``; its message."""
     from repro_torch.engine import ArtifactCorruptError, InferenceSession
@@ -2820,14 +2878,15 @@ def _expect_corrupt(bad: Path, device) -> str:
 
 def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
                   compile_s: float, kernels: list, respecialize=None,
-                  corrupt: bool = False) -> dict:
+                  corrupt: bool = False, keep: Path | None = None) -> dict:
     """Save ``session``, load it in a child and hold the child to it: the
     outputs and logits of every request bit for bit, zero searches, the
     launches of a predict (B1 once per conv node, all sm90, on the kernel
     path; one lowering a conv node and no B1 on the lowerings), every
     weight leaf bit for bit; then, where asked, an unseen batch size
     planned from the packed source against the saving session's, and a
-    copy with one flipped byte refused."""
+    copy with one flipped byte refused.  With ``keep`` the artifact is
+    moved there after, for the serving phase's start-up child."""
     on_card = torch.device(device).type == "cuda"
     art, work = tmp / name, tmp / f"{name}-work"
     work.mkdir()
@@ -2942,7 +3001,10 @@ def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
         line["corrupt_copy_refused"] = {
             "file": victim.relative_to(bad).as_posix(), "error": msg[:160]}
         shutil.rmtree(bad)
-    shutil.rmtree(art)
+    if keep is None:
+        shutil.rmtree(art)
+    else:
+        shutil.move(art, keep)
     shutil.rmtree(work)
     emit(line)
     return line
@@ -3017,7 +3079,8 @@ def phase_artifacts(device, main_run: dict, lm_run: dict,
                     requests: int = ARTIFACT_REQUESTS,
                     big_batch: int = BIG_BATCH,
                     respecialize: int = RESPECIALIZE,
-                    prompts=ARTIFACT_PROMPTS) -> list:
+                    prompts=ARTIFACT_PROMPTS,
+                    keep: Path | None = None) -> list:
     """A6 on the card: ``main_run``'s session (its batch-1 and
     ``big_batch`` specializations, the source packed), an int8 session on
     the lowerings (batch 1), ``lm_run``'s session and ``tuned_run``'s
@@ -3025,7 +3088,8 @@ def phase_artifacts(device, main_run: dict, lm_run: dict,
     cold in a fresh process (``_cnn_artifact``, ``_lm_artifact``: no
     search, no calibration probe, the saved ``transform_bw``); a copy of
     the first with one flipped byte must be refused.  All in a temporary
-    directory of the checkout that the phase deletes."""
+    directory of the checkout that the phase deletes, but for the first
+    artifact, which moves to ``keep`` where given."""
     from repro_torch.engine import compile
 
     model, image = main_run["model"], main_run["image"]
@@ -3037,7 +3101,7 @@ def phase_artifacts(device, main_run: dict, lm_run: dict,
         lines = [_cnn_artifact(
             main_run["session"], model, tmp, xs + [x_big], device,
             main_run["compile_s"], ["conv2d_nchwc_sm90"], respecialize=xr,
-            corrupt=True)]
+            corrupt=True, keep=keep)]
         t0 = time.perf_counter()
         q8 = compile(model, (1, 3, image, image), seed=0, device=device,
                      dtype="int8", use_kernel=False)
@@ -3052,6 +3116,603 @@ def phase_artifacts(device, main_run: dict, lm_run: dict,
                 xs, device, tuned_run["compile_s"], ["conv2d_nchwc_sm90"]))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# serving (A7)
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS = 64        # the load step's requests (1-3 rows each)
+SERVE_BUCKET = 8           # every served batch runs the batch-8 plan
+SERVE_CLIENTS = 4          # client threads submitting them
+SERVE_ROUNDS = 5           # paired rounds of the load step
+# chaos: the watchdog far above a batch-8 predict (3.2 ms of latency, PR
+# 21), the stalled batch far past it
+SERVE_WATCHDOG_MS = 250.0
+SERVE_DELAY_MS = 600.0
+TRACE_REQUESTS = 96
+# mamba2-130m's buckets are 512, 1024 and 2048: every prompt prefills (B4),
+# two exactly at a bucket, two with a decode catch-up of 28 and 32 tokens
+STREAM_PROMPTS = (512, 540, 1024, 1056)
+STREAM_NEW = 32
+FLEET_MODEL = ("vgg-16", 224)
+STARTUP_LIMIT_S = 30.0     # spawn to the first served response (PERF.md §2)
+SERVE_TIMEOUT_S = 300
+
+
+def _rows_images(rows: list, image: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(r, 3, image, image)).astype(np.float32)
+            for r in rows]
+
+
+def _serving_threads_done(timeout: float = 10.0) -> None:
+    """Join every serving worker thread still alive (a superseded one may
+    still be finishing a stalled batch), so counts read after are final."""
+    import threading
+
+    for t in threading.enumerate():
+        if t.name.startswith("neocpu-serving"):
+            t.join(timeout)
+
+
+def _serve(srv, xs: list, device, clients: int = SERVE_CLIENTS) -> dict:
+    """``xs`` submitted to the server ``srv`` by ``clients`` threads
+    (request i by thread i % clients; the odd threads upload theirs to the
+    card first, so the server takes host arrays and device tensors both);
+    every response read.  Returns the responses (numpy), the seconds from
+    the first submit to the last response, each request's latency from
+    its submit to its future's resolution (ms), and the B1 launches and
+    batches of the run."""
+    import threading
+
+    b1 = _kernel_fns()["conv2d_nchwc"]
+    futs, lat = [None] * len(xs), [None] * len(xs)
+
+    def client(c):
+        for i in range(c, len(xs), clients):
+            x = xs[i]
+            if c % 2:
+                x = torch.from_numpy(x).to(device)
+            t = time.perf_counter()
+            futs[i] = srv.submit(x)
+            futs[i].add_done_callback(
+                lambda _f, i=i, t=t: lat.__setitem__(
+                    i, (time.perf_counter() - t) * 1e3))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    launches, batches = b1.launches, srv.stats.n_batches
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    outs = [f.result(timeout=SERVE_TIMEOUT_S) for f in futs]
+    seconds = time.perf_counter() - t0
+    while None in lat:      # a future's callbacks run just after its waiters
+        time.sleep(1e-4)
+    return {"outs": [y.cpu().numpy() for y in outs], "seconds": seconds,
+            "lat_ms": lat, "b1": b1.launches - launches,
+            "batches": srv.stats.n_batches - batches}
+
+
+def _bit_identical(name: str, got: list, want: list) -> None:
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not (g.shape == w.shape and g.tobytes() == w.tobytes())]
+    if len(got) != len(want) or bad:
+        raise RuntimeError(f"serving {name}: responses {bad[:8]} of "
+                           f"{len(want)} differ from padded_predict at "
+                           "their bucket")
+
+
+def _served_clean(name: str, st) -> None:
+    """Outside the chaos step nothing may fail, be shed, expire or be
+    refused."""
+    bad = {k: getattr(st, k) for k in (
+        "n_failed", "n_shed", "n_deadline_expired", "n_rejected_full",
+        "n_rejected_too_large", "n_cancelled", "n_retried",
+        "n_worker_crashes") if getattr(st, k)}
+    if bad:
+        raise RuntimeError(f"serving {name}: {bad}")
+
+
+def _b1_per_batch(name: str, run: dict, n_convs: int, on_card: bool) -> None:
+    want = n_convs * run["batches"] if on_card else 0
+    if run["b1"] != want:
+        raise RuntimeError(f"serving {name}: {run['b1']} B1 launches for "
+                           f"{run['batches']} batches, expected {want}")
+
+
+def _busy(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (``_profiled``): its
+    wall ms, the card's busy ms (the union of the kernels' intervals, as
+    two streams may overlap), the kernels' summed ms and the idle share."""
+    from torch.autograd import DeviceType
+
+    prof, wall_ms, _, gaps = _profiled(fn, 1)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.id not in gaps["lead_ids"])
+    if not spans:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    busy, kernel_us, (lo, hi) = 0.0, 0.0, spans[0]
+    for a, b in spans:
+        kernel_us += b - a
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy = (busy + hi - lo) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "kernel_sum_ms": kernel_us / 1e3,
+            "idle_share": 1 - busy / wall_ms}
+
+
+@contextlib.contextmanager
+def host_split():
+    """Host seconds, summed over the serving workers, of the three steps
+    of each executed batch while the block runs: gathering its inputs
+    onto the device (``AsyncServer._gather``), the graph walk that
+    enqueues its kernels (``CompiledModel.predict``) and the wait for its
+    stream (``torch.cuda.Stream.synchronize``).  The functions are
+    wrapped, not replaced."""
+    import threading
+
+    from repro_torch.engine import AsyncServer, CompiledModel
+
+    owners = {"gather": (AsyncServer, "_gather"),
+              "walk": (CompiledModel, "predict"),
+              "wait": (torch.cuda.Stream, "synchronize")}
+    real = {k: getattr(cls, name) for k, (cls, name) in owners.items()}
+    spent = dict.fromkeys(owners, 0.0)
+    lock = threading.Lock()
+
+    def timed(key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[key](*args, **kw)
+            finally:
+                with lock:
+                    spent[key] += time.perf_counter() - t0
+        return call
+
+    for k, (cls, name) in owners.items():
+        setattr(cls, name, timed(k))
+    try:
+        yield spent
+    finally:
+        for k, (cls, name) in owners.items():
+            setattr(cls, name, real[k])
+
+
+def _stats_line(st) -> dict:
+    js = st.to_json()
+    return {k: js[k] for k in ("n_submitted", "n_completed", "n_batches",
+                               "rows_executed", "rows_padded",
+                               "mean_batch_rows", "p50_ms", "p90_ms",
+                               "p99_ms", "worker_batches")}
+
+
+def serving_load(session, device, smi: str, xs: list, refs: list,
+                 n_convs: int, rounds: int = SERVE_ROUNDS) -> dict:
+    """The reference's ``serving_load``: ``xs`` served four ways in each
+    of ``rounds`` paired rounds — sequential ``padded_predict`` at the
+    bucket, a long-lived server at 1 and at 2 workers (``_serve``, each
+    warmed by one round first: a worker's stream draws its own memory
+    from the caching allocator), and sequential at each request's nearest
+    bucket (informational) — every served response bit-identical to
+    ``refs`` and B1 once per conv node per executed batch, every round.
+    Then one more round a server under ``host_split`` (a batch's host ms
+    by step) and, on the card, one under the profiler."""
+    from repro_torch.engine import (AsyncServer, DynamicBatchPolicy,
+                                    padded_predict)
+
+    on_card = torch.device(device).type == "cuda"
+    policy = DynamicBatchPolicy(max_batch=SERVE_BUCKET, max_wait_ms=2.0,
+                                fixed_bucket=SERVE_BUCKET)
+
+    def sequential(bucket):
+        t0 = time.perf_counter()
+        for x in xs:
+            padded_predict(session, x, bucket=bucket)
+            if on_card:
+                torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    def served(w):
+        run = _serve(servers[w], xs, device)
+        _bit_identical(f"load workers={w}", run["outs"], refs)
+        _b1_per_batch(f"load workers={w}", run, n_convs, on_card)
+        return run
+
+    servers = {w: AsyncServer(session, policy, workers=w,
+                              max_queue=len(xs)) for w in (1, 2)}
+    samples = {"sequential": [], "workers_1": [], "workers_2": [],
+               "sequential_nearest": []}
+    runs = {1: [], 2: []}
+    try:
+        for w in (1, 2):
+            served(w)                       # warm-up round
+        for _ in range(rounds):
+            samples["sequential"].append(sequential(SERVE_BUCKET))
+            for w in (1, 2):
+                runs[w].append(served(w))
+                samples[f"workers_{w}"].append(runs[w][-1]["seconds"])
+            samples["sequential_nearest"].append(sequential(None))
+        split = {}
+        for w in (1, 2):
+            with host_split() as spent:
+                run = served(w)
+            split[f"workers_{w}"] = {
+                "seconds": run["seconds"], "batches": run["batches"],
+                **{k: v * 1e3 / run["batches"] for k, v in spent.items()}}
+        trace = ({f"workers_{w}": _busy(lambda w=w: _serve(servers[w], xs,
+                                                           device))
+                  for w in (1, 2)} if on_card else None)
+    finally:
+        for srv in servers.values():
+            srv.close()
+        _serving_threads_done()
+    for w, srv in servers.items():
+        _served_clean(f"load workers={w}", srv.stats)
+    n, rows = len(xs), sum(int(x.shape[0]) for x in xs)
+    med = {k: statistics.median(v) for k, v in samples.items()}
+    out = {"phase": "serving", "step": "load", "card": smi,
+           "requests": n, "rows": rows, "bucket": SERVE_BUCKET,
+           "clients": SERVE_CLIENTS, "rounds": rounds,
+           "median_s": med, "samples_s": samples,
+           "requests_per_s": {k: n / v for k, v in med.items()},
+           "rows_per_s": {k: rows / v for k, v in med.items()},
+           "speedup_vs_sequential": {
+               f"workers_{w}": med["sequential"] / med[f"workers_{w}"]
+               for w in (1, 2)},
+           "bit_identical": True,
+           "b1_launches": {f"workers_{w}": sum(r["b1"] for r in runs[w])
+                           for w in (1, 2)},
+           "host_ms_per_batch": split}
+    for w in (1, 2):
+        lat = [x for r in runs[w] for x in r["lat_ms"]]
+        out[f"workers_{w}"] = {
+            "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                           "p99": float(np.percentile(lat, 99))},
+            "batches_per_round": [r["batches"] for r in runs[w]],
+            "server": _stats_line(servers[w].stats)}
+    if trace is not None:
+        out["trace"] = trace
+    emit(out)
+    return out
+
+
+def serving_chaos(session, device, smi: str, xs: list, refs: list,
+                  n_convs: int, watchdog_ms: float = SERVE_WATCHDOG_MS,
+                  delay_ms: float = SERVE_DELAY_MS) -> dict:
+    """The reference's ``serving_chaos``: two workers, a retry budget of 3
+    and the watchdog at ``watchdog_ms``; the worker of batch 1 is killed,
+    batches 3 and 5 fail, batch 7 stalls for ``delay_ms``, past the
+    watchdog.  Every request completes bit-identical to ``refs``."""
+    from repro_torch.engine import (AsyncServer, DelayBatch,
+                                    DynamicBatchPolicy, FailBatch,
+                                    FaultInjector, KillWorker, RetryPolicy)
+
+    on_card = torch.device(device).type == "cuda"
+    inj = FaultInjector(KillWorker(on_batch=1), FailBatch(on_batch=3),
+                        FailBatch(on_batch=5),
+                        DelayBatch(on_batch=7, delay_ms=delay_ms))
+    srv = AsyncServer(session, DynamicBatchPolicy(
+        max_batch=SERVE_BUCKET, max_wait_ms=2.0, fixed_bucket=SERVE_BUCKET),
+        workers=2, max_queue=len(xs),
+        retry=RetryPolicy(budget=3, backoff_ms=1.0),
+        watchdog_ms=watchdog_ms, max_restarts=3, faults=inj)
+    b1 = _kernel_fns()["conv2d_nchwc"]
+    launches = b1.launches
+    try:
+        run = _serve(srv, xs, device)
+    finally:
+        srv.close()
+        _serving_threads_done()     # the stalled batch's thread included
+    # the stalled batch runs on after its requeued copy answered
+    run.update(batches=srv.stats.n_batches, b1=b1.launches - launches)
+    _bit_identical("chaos", run["outs"], refs)
+    st = srv.stats
+    fired = sorted(inj.fired_kinds())
+    if (fired != ["DelayBatch", "FailBatch", "FailBatch", "KillWorker"]
+            or st.n_completed != len(xs) or st.n_failed
+            or st.n_worker_crashes != 1 or st.n_hung_requeued < 1
+            or st.n_worker_restarts < 2 or st.n_retried < 4):
+        raise RuntimeError(f"serving chaos: fired {fired}, {st.to_json()}")
+    _b1_per_batch("chaos", run, n_convs, on_card)
+    counters = srv.health()["counters"]
+    out = {"phase": "serving", "step": "chaos", "card": smi,
+           "requests": len(xs), "workers": 2, "retry_budget": 3,
+           "watchdog_ms": watchdog_ms, "delay_ms": delay_ms,
+           "fired": inj.fired, "seconds": run["seconds"],
+           "counters": counters, "health": {
+               k: v for k, v in srv.health().items() if k != "telemetry"},
+           "b1_launches": run["b1"], "bit_identical": True,
+           **_stats_line(st)}
+    emit(out)
+    return out
+
+
+def serving_trace(session, device, smi: str, n_convs: int,
+                  n: int = TRACE_REQUESTS, seed: int = 0) -> dict:
+    """The reference's ``serving_trace``: ``synth_trace("bursty")`` of
+    ``n`` requests up to 8 rows, the three priority classes in turn,
+    replayed in real time by one client into two workers packing
+    earliest-deadline-first; nothing lost, every response bit-identical
+    at the bucket."""
+    from repro_torch.engine import (PRIORITY_CLASSES, AsyncServer,
+                                    DynamicBatchPolicy, padded_predict,
+                                    synth_trace)
+
+    on_card = torch.device(device).type == "cuda"
+    trace = synth_trace("bursty", n=n, mean_rate=200.0, max_rows=8,
+                        priorities=PRIORITY_CLASSES, seed=seed)
+    image = session.input_spec[next(iter(session.input_spec))][-1]
+    xs = _rows_images([r.rows for r in trace], image, seed + 21)
+    refs = [padded_predict(session, x, bucket=SERVE_BUCKET).cpu().numpy()
+            for x in xs]
+    b1 = _kernel_fns()["conv2d_nchwc"]
+    srv = AsyncServer(session, DynamicBatchPolicy(
+        max_batch=SERVE_BUCKET, max_wait_ms=2.0, fixed_bucket=SERVE_BUCKET,
+        order="edf"), workers=2, max_queue=n)
+    launches = b1.launches
+    futs, lag = [], []
+    t0 = time.perf_counter()
+    for r, x in zip(trace, xs):
+        wait = t0 + r.t - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        lag.append(time.perf_counter() - t0 - r.t)
+        futs.append(srv.submit(x, priority=r.priority,
+                               deadline_ms=r.deadline_ms))
+    outs = [f.result(timeout=SERVE_TIMEOUT_S).cpu().numpy() for f in futs]
+    seconds = time.perf_counter() - t0
+    srv.close()
+    _serving_threads_done()
+    _bit_identical("trace", outs, refs)
+    st = srv.stats
+    _served_clean("trace", st)
+    run = {"batches": st.n_batches, "b1": b1.launches - launches}
+    _b1_per_batch("trace", run, n_convs, on_card)
+    out = {"phase": "serving", "step": "trace", "card": smi,
+           "kind": "bursty", "requests": n,
+           "rows": sum(r.rows for r in trace), "trace_s": trace[-1].t,
+           "seconds": seconds, "submit_lag_ms_max": max(lag) * 1e3,
+           "requests_per_s": n / seconds,
+           "by_class_ms": {k: {q: (v * 1e3 if isinstance(v, float) else v)
+                               for q, v in s.to_json().items()
+                               if q in ("count", "p50", "p99")}
+                           for k, s in sorted(st.latency_by_class.items())},
+           "n_shed": st.n_shed, "n_deadline_expired": st.n_deadline_expired,
+           "b1_launches": run["b1"], "bit_identical": True,
+           **_stats_line(st)}
+    emit(out)
+    return out
+
+
+def serving_stream(lm, device, smi: str, prompts=STREAM_PROMPTS,
+                   new: int = STREAM_NEW, seed: int = 5) -> dict:
+    """The reference's ``lm_serving``: each prompt streamed through
+    ``submit_stream`` (one at a time, so the first token's time holds no
+    queueing); the tokens of every step equal ``generate``'s, and B4
+    launches once per layer per prefill."""
+    from repro_torch.engine import AsyncServer, DynamicBatchPolicy
+
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed)
+    toks = [rng.integers(0, lm.cfg.vocab, size=(lm.batch, n))
+            for n in prompts]
+    want = [lm.generate(t, new) for t in toks]
+    b4 = _kernel_fns()["ssd_intra"]
+    per_prefill = lm_kernels_of(lm.cfg).get("ssd_intra", (0, 0))[0]
+    srv = AsyncServer(lm, DynamicBatchPolicy(max_batch=lm.batch,
+                                             max_wait_ms=0.0))
+    streams = []
+    for n, t, w in zip(prompts, toks, want):
+        launches = b4.launches
+        t0 = time.perf_counter()
+        stream = srv.submit_stream(t, new)
+        arrivals, steps = [], []
+        for step in stream:
+            arrivals.append(time.perf_counter())
+            steps.append(np.asarray(step))
+        got = np.stack(steps, axis=1)
+        if not np.array_equal(got, w):
+            raise RuntimeError(f"serving stream: the streamed tokens of the "
+                               f"{n}-token prompt differ from generate's")
+        prefilled = lm.bucket_for(n) is not None
+        expect = per_prefill * prefilled if on_card else 0
+        if b4.launches - launches != expect:
+            raise RuntimeError(f"serving stream: {b4.launches - launches} B4 "
+                               f"launches for the {n}-token prompt, "
+                               f"expected {expect}")
+        streams.append({
+            "prompt": n, "bucket": lm.bucket_for(n), "new": new,
+            "ttft_ms": (arrivals[0] - t0) * 1e3,
+            "tpot_ms": (arrivals[-1] - arrivals[0]) * 1e3 / (new - 1),
+            "b4_launches": b4.launches - launches})
+    srv.close()
+    _served_clean("stream", srv.stats)
+    out = {"phase": "serving", "step": "stream", "card": smi,
+           "model": lm.model_name, "streams": streams,
+           "tokens_equal": True, "b4_launches_per_prefill": per_prefill
+           if on_card else 0, **_stats_line(srv.stats)}
+    emit(out)
+    return out
+
+
+def serving_fleet(session, device, smi: str, model=FLEET_MODEL,
+                  seed: int = 0) -> dict:
+    """Two tenants in a ``FleetServer`` — ``session`` and ``model`` compiled
+    here, each at buckets {1, 8} — under a memory budget that holds three of
+    the four specializations.  One request at a time (so the bucket it runs
+    through, the smallest resident one that fits, is known): every
+    response bit-identical to ``padded_predict`` at that bucket from before
+    the fleet existed; LRU evicts, an evicted bucket that nothing resident
+    covers re-specializes with no schedule search, nothing is lost.  The
+    first tenant's single-row request makes its bucket 8 the least
+    recently used when the second tenant arrives."""
+    from repro_torch.core.local_search import search_calls
+    from repro_torch.engine import (DynamicBatchPolicy, FleetServer,
+                                    compile, nearest_bucket, padded_predict)
+
+    name, image = model
+    t0 = time.perf_counter()
+    second = compile(name, (1, 3, image, image), seed=seed, device=device)
+    second.specialize(SERVE_BUCKET)
+    compile_s = time.perf_counter() - t0
+    first = session.model_name or "first"
+    other = name if name != first else f"{name}-2"
+    tenants = {first: session, other: second}
+    mem = {t: s.memory_bytes() for t, s in tenants.items()}
+    sizes = [b for d in mem.values() for b in d.values()]
+    budget = sum(sizes) - min(sizes) // 2
+    stream = [(first, 8), (first, 1), (other, 1), (first, 8), (other, 8),
+              (first, 1), (other, 1), (first, 8), (other, 8), (first, 1)]
+    images = {t: s.input_spec[next(iter(s.input_spec))][-1]
+              for t, s in tenants.items()}
+    xs = [_rows_images([rows], images[t], seed + 31 + i)[0]
+          for i, (t, rows) in enumerate(stream)]
+    refs = {(i, b): padded_predict(tenants[t], x, bucket=b).cpu().numpy()
+            for i, ((t, rows), x) in enumerate(zip(stream, xs))
+            for b in (1, SERVE_BUCKET) if b >= rows}
+    n_convs = {t: sum(1 for nd in s.plan_for(1).planned.graph.topo_order()
+                      if nd.op in CONV_OPS) for t, s in tenants.items()}
+    on_card = torch.device(device).type == "cuda"
+    b1 = _kernel_fns()["conv2d_nchwc"]
+    fleet = FleetServer(memory_budget_bytes=budget, autostart=False,
+                        device=device)
+    searches, launches = search_calls(), b1.launches
+    ran, respecialized, want_b1 = [], 0, 0
+    for i, ((t, rows), x) in enumerate(zip(stream, xs)):
+        if t not in fleet.models:
+            fleet.add_model(t, tenants[t], policy=DynamicBatchPolicy(
+                max_batch=SERVE_BUCKET, max_wait_ms=0.0))
+        fut = fleet.submit(t, x)
+        bucket = nearest_bucket(rows, tenants[t].batch_sizes)
+        respecialized += bucket is None
+        if not fleet.step(t):
+            raise RuntimeError(f"serving fleet: request {i} did not run")
+        got = fut.result(timeout=SERVE_TIMEOUT_S).cpu().numpy()
+        bucket = bucket or rows
+        _bit_identical(f"fleet request {i}", [got], [refs[(i, bucket)]])
+        ran.append([t, rows, bucket])
+        want_b1 += n_convs[t] if on_card else 0
+    health = fleet.health()
+    fleet.close()
+    if search_calls() != searches or respecialized < 1 \
+            or fleet.n_evictions < 2:
+        raise RuntimeError(f"serving fleet: {search_calls() - searches} "
+                           f"searches, {respecialized} re-specializations, "
+                           f"{fleet.n_evictions} evictions")
+    if b1.launches - launches != want_b1:
+        raise RuntimeError(f"serving fleet: {b1.launches - launches} B1 "
+                           f"launches, expected {want_b1}")
+    for t, st in fleet.stats().items():
+        _served_clean(f"fleet {t}", st)
+    out = {"phase": "serving", "step": "fleet", "card": smi,
+           "tenants": {t: {"image": images[t],
+                           "bytes_per_specialization": mem[t]}
+                       for t in tenants},
+           "second_compile_s": compile_s, "budget_bytes": budget,
+           "requests": ran, "evictions": fleet.n_evictions,
+           "respecialized": respecialized, "searches": 0,
+           "resident_bytes": health["memory"]["resident_bytes"],
+           "resident_buckets": {t: sorted(s.batch_sizes)
+                                for t, s in tenants.items()},
+           "b1_launches": b1.launches - launches, "bit_identical": True}
+    emit(out)
+    return out
+
+
+def serving_startup(art: Path, device, smi: str, x: np.ndarray,
+                    ref: np.ndarray, n_convs: int) -> dict:
+    """A fresh ``python3 chip_smoke.py --load-artifact`` process loads the
+    ResNet-50 artifact, starts an ``AsyncServer`` and serves ``x``: the
+    seconds from the spawn to the first response (under
+    ``STARTUP_LIMIT_S``) split into start, load, server start and first
+    response; bit-identical to the parent, no search, and on the card B1
+    launched once per conv node (``n_convs``) for it."""
+    work = Path(tempfile.mkdtemp(prefix=".serving-", dir=ROOT))
+    try:
+        np.save(work / "x0.npy", x)
+        job = {"kind": "serve", "kernels": ["conv2d_nchwc_sm90"],
+               "inputs": ["x0.npy"], "bucket": SERVE_BUCKET}
+        t0 = time.time()
+        res = run_child(art, work, device, job)
+        spawn_to_first = res["t_first"] - t0
+        got = np.load(work / "y0_0.npy")
+        _bit_identical("startup", [got], [ref])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if res["searches"] or spawn_to_first > STARTUP_LIMIT_S:
+        raise RuntimeError(f"serving startup: {res['searches']} searches, "
+                           f"{spawn_to_first:.2f} s from spawn to the first "
+                           f"response (limit {STARTUP_LIMIT_S} s)")
+    b1 = res["launches"]["conv2d_nchwc"]
+    want = n_convs if torch.device(device).type == "cuda" else 0
+    if b1 != want:
+        raise RuntimeError(f"serving startup: {b1} B1 launches for the "
+                           f"first response, expected {want}")
+    out = {"phase": "serving", "step": "startup", "card": smi,
+           "spawn_to_first_response_s": spawn_to_first,
+           "limit_s": STARTUP_LIMIT_S, "start_s": res["start_s"],
+           "rebuild_s": res["rebuild_s"], "load_s": res["load_s"],
+           "server_start_s": res["server_s"],
+           "first_response_s": res["first_s"], "child_s": res["child_s"],
+           "searches": 0, "bit_identical": True,
+           "b1_launches_first_response": b1}
+    emit(out)
+    return out
+
+
+def phase_serving(device, smi: str, main_run: dict, lm_run: dict,
+                  art: Path, requests: int = SERVE_REQUESTS,
+                  rounds: int = SERVE_ROUNDS, trace_n: int = TRACE_REQUESTS,
+                  prompts=STREAM_PROMPTS, new: int = STREAM_NEW,
+                  fleet_model=FLEET_MODEL,
+                  chaos_ms=(SERVE_WATCHDOG_MS, SERVE_DELAY_MS)) -> dict:
+    """A7 on the card: ``main_run``'s ResNet-50 session (batch 1 and 8) and
+    ``lm_run``'s mamba2-130m session served — ``load``, ``chaos``,
+    ``trace``, ``stream``, ``fleet`` and, from ``art`` (phase 10's saved
+    ResNet-50 artifact), ``startup`` — one line each, then the phase's
+    seconds (``total``).  Every served
+    response is bit-identical to ``padded_predict`` at its bucket, and the
+    launches of the served batches are counted (B1 53 a batch, B4 24 a
+    streamed prefill)."""
+    from repro_torch.engine import padded_predict, synth_trace
+
+    t0 = time.perf_counter()
+    session, image = main_run["session"], main_run["image"]
+    n_convs = sum(1 for nd in session.plan_for(1).planned.graph.topo_order()
+                  if nd.op in CONV_OPS)
+    rows = [r.rows for r in synth_trace("uniform", n=requests, max_rows=3,
+                                        seed=0)]
+    xs = _rows_images(rows, image, 13)
+    refs = [padded_predict(session, x, bucket=SERVE_BUCKET).cpu().numpy()
+            for x in xs]
+    lines = {"load": serving_load(session, device, smi, xs, refs, n_convs,
+                                  rounds),
+             "chaos": serving_chaos(session, device, smi, xs, refs,
+                                    n_convs, *chaos_ms),
+             "trace": serving_trace(session, device, smi, n_convs, trace_n),
+             "stream": serving_stream(lm_run["session"], device, smi,
+                                      prompts, new),
+             "startup": serving_startup(art, device, smi, xs[0], refs[0],
+                                        n_convs),
+             "fleet": serving_fleet(session, device, smi, fleet_model)}
+    lines["b1_launches"] = {k: lines[k]["b1_launches"]
+                            for k in ("load", "chaos", "trace", "fleet")}
+    lines["b4_stream_launches"] = [s["b4_launches"]
+                                   for s in lines["stream"]["streams"]]
+    emit({"phase": "serving", "step": "total", "card": smi,
+          "seconds": time.perf_counter() - t0})
     return lines
 
 
@@ -3114,6 +3775,33 @@ def prefill_only(device, smi: str, model: str = "mamba2-130m") -> int:
     return 0
 
 
+def serving_only(device, smi: str) -> int:
+    """The serving phase alone: ResNet-50 at 224 (batch 1 and 8) and
+    mamba2-130m compiled, warmed and the former saved, then
+    ``phase_serving``.  B1, B4 and cuBLAS warm up in the compile and the
+    warm-up predicts, before any server starts."""
+    from repro_torch.engine import compile, padded_predict
+
+    t0 = time.perf_counter()
+    session = compile(MODEL, (1, 3, IMAGE, IMAGE), seed=0, device=device)
+    session.specialize(BIG_BATCH)
+    for b in (1, BIG_BATCH):
+        padded_predict(session, np.zeros((1, 3, IMAGE, IMAGE), np.float32),
+                       bucket=b)
+    main_run = {"session": session, "model": MODEL, "image": IMAGE,
+                "compile_s": time.perf_counter() - t0}
+    lm = compile("mamba2-130m", (1, 2048), seed=0, device=device)
+    lm.prewarm()
+    kept = Path(tempfile.mkdtemp(prefix=".artifacts-", dir=ROOT))
+    try:
+        session.save(kept / MODEL)
+        phase_serving(device, smi, main_run, {"session": lm}, kept / MODEL)
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+    memory_line("serving", device)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--load-artifact"]:
         return load_artifact(sys.argv[2:])
@@ -3141,6 +3829,8 @@ def main() -> int:
     if sys.argv[1:] == ["--tuning-only"]:
         phase_tuning(device, smi)
         return 0
+    if sys.argv[1:] == ["--serving-only"]:
+        return serving_only(device, smi)
 
     build = phase_build()
     convs = plan_convs(MODEL, 1, IMAGE)
@@ -3191,9 +3881,16 @@ def main() -> int:
         memory.append(memory_line(f"zoo {m}", device))
     tuning = phase_tuning(device, smi)
     memory.append(memory_line("tuning", device))
-    artifacts = phase_artifacts(device, main_run, lm_runs["mamba2-130m"],
-                                tuning)
-    memory.append(memory_line("artifacts", device))
+    kept = Path(tempfile.mkdtemp(prefix=".artifacts-", dir=ROOT))
+    try:
+        artifacts = phase_artifacts(device, main_run, lm_runs["mamba2-130m"],
+                                    tuning, keep=kept / MODEL)
+        memory.append(memory_line("artifacts", device))
+        serving = phase_serving(device, smi, main_run,
+                                lm_runs["mamba2-130m"], kept / MODEL)
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+    memory.append(memory_line("serving", device))
     # release every earlier session before arctic-480b's 55 GB of weights
     for run in [main_run, tuning, *lm_runs.values()]:
         run.pop("session")
@@ -3234,6 +3931,7 @@ def main() -> int:
                 "zoo_launches": {z["model"]: z["launches"] for z in zoo},
                 "artifact_launches_per_predict":
                 artifacts[0]["b1_launches_per_predict"],
+                "serving_launches": serving["b1_launches"],
                 "tuning_launches_per_predict": {
                     f"{t['model']} {t.get('mode', t['phase'])}":
                     t["b1_per_predict"] for t in tuning["lines"]
@@ -3273,7 +3971,8 @@ def main() -> int:
                 ms_events=n * r["ms"], fma_bound_ms=n * r["fma_bound_ms"],
                 artifact_launches_per_request=[
                     r["ssd_intra"] for r in artifacts[2]
-                    ["launches_per_request"]])
+                    ["launches_per_request"]],
+                serving_stream_launches=serving["b4_stream_launches"])
     lm_main = [{k: v for k, v in r.items()
                 if k not in ("session", "big_session")}
                for r in lm_runs.values()]
@@ -3284,6 +3983,8 @@ def main() -> int:
               "variants": variants,
               "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e, "zoo": zoo,
               "tuning": tuning["lines"], "artifacts": artifacts,
+              "serving": {k: serving[k] for k in (
+                  "load", "chaos", "trace", "stream", "startup", "fleet")},
               "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

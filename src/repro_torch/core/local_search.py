@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import threading
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -296,11 +297,14 @@ class ScheduleDatabase:
     analytical searches an in-memory database (the default).
 
     The memo does not key on the machine or the device: give each its own
-    database."""
+    database.  Tenants of a fleet share one and may insert from several
+    threads: the blob is built from a snapshot of the entries, and the
+    file is written by one thread at a time."""
 
     def __init__(self, path: Optional[Path] = None) -> None:
         self.path = Path(path) if path else None
         self._mem: Dict[str, LocalSearchResult] = {}
+        self._save_lock = threading.Lock()
         if self.path and self.path.exists():
             self._load()
 
@@ -381,7 +385,7 @@ class ScheduleDatabase:
         artifact path uses it, because an analytical entry carries the
         full candidate ranking and is re-derivable."""
         blob = {}
-        for key, res in self._mem.items():
+        for key, res in list(self._mem.items()):
             if measured_only and not res.measured:
                 continue
             blob[key] = {
@@ -410,8 +414,9 @@ class ScheduleDatabase:
                 search_budget=tuple(rec.get("search_budget", (0, 0))))
 
     def _save(self) -> None:
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        self.path.write_text(json.dumps(self.to_blob()))
+        with self._save_lock:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self.path.write_text(json.dumps(self.to_blob()))
 
     @staticmethod
     def _known_fields(cls, d: Dict) -> Dict:

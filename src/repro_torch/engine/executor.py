@@ -19,12 +19,15 @@ schedule's lowering (variant and dtype) as torch ops on either device, the
 reference's ``use_pallas=False`` path.  ``dispatch`` keeps the
 reference's two names ("whole", "op"); both walk the graph node by node
 here, because the reference's whole-graph ``jax.jit`` has no counterpart
-until CUDA-graph capture lands.  Multi-device execution (``devices > 1``)
-and ``replica`` wait for the serving slices (ROADMAP A7).
+until CUDA-graph capture lands.  ``replica(device)`` is the same program
+with its bound parameters on another device, the executable a serving
+worker on that device runs.  Batch-sharded execution (``devices > 1``)
+waits for the multi-chip slice (ROADMAP A10).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -249,6 +252,8 @@ class CompiledModel:
         if self.dispatch not in DISPATCH_MODES:
             raise ValueError(f"unknown dispatch mode {self.dispatch!r}")
         self._topo = self.plan.planned.graph.topo_order()
+        self._replicas: Dict[torch.device, "CompiledModel"] = {}
+        self._replica_lock = threading.Lock()
 
     @torch.inference_mode()
     def __call__(self, inputs: Dict[str, torch.Tensor]):
@@ -274,6 +279,41 @@ class CompiledModel:
     def input_name(self) -> str:
         (inp,) = [n.name for n in self._topo if n.op == "input"]
         return inp
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """Where the bound parameters live (None for a model without
+        any)."""
+        for node in self.params.values():
+            for t in node.values():
+                return t.device
+        return None
+
+    def replica(self, device) -> "CompiledModel":
+        """The same program with its bound parameters on ``device`` — the
+        executable a serving worker on that device runs.  ``self`` for the
+        model's own device; for another, a copy made once and cached per
+        device (the parameters copied, nothing re-planned or re-bound)."""
+        device = _concrete(torch.device(device))
+        if device == self.device:
+            return self
+        with self._replica_lock:
+            rep = self._replicas.get(device)
+            if rep is None:
+                rep = CompiledModel(
+                    plan=self.plan,
+                    params={name: {k: t.to(device) for k, t in p.items()}
+                            for name, p in self.params.items()},
+                    dispatch=self.dispatch, use_kernel=self.use_kernel)
+                self._replicas[device] = rep
+        return rep
+
+
+def _concrete(device: torch.device) -> torch.device:
+    """``cuda`` as the indexed device it means (the current one)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def compile_model(plan: Plan, params: Params, dispatch: str = "whole",

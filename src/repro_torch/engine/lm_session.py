@@ -78,6 +78,21 @@ class LMSession:
         self._params = params
         self.device = params["embed"].device
 
+    # -- the surface AsyncServer speaks --------------------------------------
+    @property
+    def input_spec(self) -> Dict[str, tuple]:
+        return {"tokens": (self.batch, self.max_len)}
+
+    @property
+    def frozen(self) -> bool:
+        # the batch dimension is fixed at compile time (decode caches are
+        # allocated per batch); seq buckets are the flexible axis
+        return True
+
+    @property
+    def batch_sizes(self):
+        return [self.batch]
+
     def bucket_for(self, prompt_len: int) -> Optional[int]:
         """Largest seq bucket ``<=`` the prompt length, or None (the
         prompt runs entirely through decode)."""

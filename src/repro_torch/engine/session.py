@@ -176,14 +176,14 @@ def read_manifest(path: Path) -> Dict[str, Any]:
     """An artifact's manifest, migrated to ``ARTIFACT_VERSION`` — or the
     typed error."""
     try:
-        raw = (path / "manifest.json").read_text()
+        raw = (path / "manifest.json").read_bytes()
     except FileNotFoundError as e:
         raise ArtifactError(
             f"{path} is not a saved artifact: no manifest.json "
             f"({e})") from e
     try:
         manifest = json.loads(raw)
-    except json.JSONDecodeError as e:
+    except (json.JSONDecodeError, UnicodeDecodeError) as e:
         raise ArtifactCorruptError(
             f"{path}/manifest.json is corrupt (not valid JSON): {e}") from e
     if (not isinstance(manifest, dict)

@@ -7,22 +7,59 @@ size histogram is an exact 1-D k-segmentation (:func:`solve_buckets`).  LM
 prefill buckets truncate *down* instead — a prompt prefills the largest
 bucket ``<=`` its length and catches up the rest through decode — and
 :func:`solve_seq_buckets` solves them by reflection.
-``compile_lm(seq_buckets="auto")`` uses it.  Priority classes and trace
-synthesis wait for the serving slice (ROADMAP A7).
+``compile_lm(seq_buckets="auto")`` uses it.
+
+Priority classes: a request carries one of :data:`PRIORITY_CLASSES`
+(``interactive`` < ``standard`` < ``batch`` in rank; the lower rank packs
+first under ``DynamicBatchPolicy(order="edf")`` when deadlines tie).
+:func:`synth_trace` draws the deterministic uniform, bursty, diurnal and
+heavy-tailed request streams the serving phase replays, from one
+``np.random.default_rng(seed)``, so a seed gives the reference's trace.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List, Mapping, Sequence, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 from repro_torch.engine.telemetry import SizeHistogram
 
 __all__ = [
+    "PRIORITY_CLASSES",
+    "DEFAULT_PRIORITY",
+    "priority_rank",
     "expected_padded_waste",
     "expected_catchup_tokens",
     "solve_buckets",
     "solve_seq_buckets",
+    "TraceRequest",
+    "TRACE_KINDS",
+    "synth_trace",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Priority classes
+# ---------------------------------------------------------------------------
+
+#: Deadline/priority classes in rank order: lower rank packs first when
+#: deadlines tie (or are absent) under ``order="edf"``.
+PRIORITY_CLASSES: Tuple[str, ...] = ("interactive", "standard", "batch")
+
+DEFAULT_PRIORITY = "standard"
+
+
+def priority_rank(priority: str) -> int:
+    """Rank of a priority class (0 = most urgent).  Typed rejection for
+    unknown classes happens here, at submission time."""
+    try:
+        return PRIORITY_CLASSES.index(priority)
+    except ValueError:
+        raise ValueError(
+            f"unknown priority class {priority!r}; "
+            f"pick one of {PRIORITY_CLASSES}") from None
 
 
 # ---------------------------------------------------------------------------
@@ -212,3 +249,83 @@ def solve_seq_buckets(hist: HistLike, *, max_buckets: int = 8,
     rb = solve_buckets(reflected, max_buckets=max_buckets + 1,
                        spec_cost=spec_cost)
     return sorted(m + 1 - b for b in rb if b != m + 1)
+
+
+# ---------------------------------------------------------------------------
+# Synthetic traces
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TraceRequest:
+    """One request of a synthetic trace: arrival time (seconds from the
+    trace start), request rows, and serving metadata."""
+
+    t: float
+    rows: int
+    tenant: str = "default"
+    priority: str = DEFAULT_PRIORITY
+    deadline_ms: Optional[float] = None
+
+
+TRACE_KINDS: Tuple[str, ...] = ("uniform", "bursty", "diurnal", "heavytail")
+
+
+def synth_trace(kind: str, *, n: int, seed: int = 0,
+                mean_rate: float = 200.0, max_rows: int = 8,
+                tenants: Sequence[str] = ("default",),
+                priorities: Sequence[str] = (DEFAULT_PRIORITY,),
+                deadline_ms: Optional[float] = None) -> List[TraceRequest]:
+    """Deterministic synthetic request stream.
+
+    Kinds (all seeded through one ``np.random.default_rng``):
+
+    * ``uniform`` — Poisson arrivals at ``mean_rate`` req/s, sizes
+      uniform in [1, max_rows].
+    * ``bursty`` — on/off Markov arrivals: bursts at 5x the mean rate
+      separated by quiet gaps; sizes skew small (most traffic is
+      single-image requests, bursts carry the larger ones).
+    * ``diurnal`` — sinusoidal rate swinging 10x between trough and
+      peak over the trace (a compressed day); sizes uniform.
+    * ``heavytail`` — Zipf-distributed sizes (mostly 1, rare large)
+      at Poisson arrivals — the distribution bucket learning wins on.
+
+    Tenants and priorities round-robin deterministically so multi-tenant
+    replays exercise every queue.  ``deadline_ms``, when set, attaches a
+    deadline to the interactive-priority requests only (batch work is
+    deadline-free, exercising the shed tie-breaks)."""
+    if kind not in TRACE_KINDS:
+        raise ValueError(f"unknown trace kind {kind!r}; "
+                         f"pick one of {TRACE_KINDS}")
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    rng = np.random.default_rng(seed)
+    out: List[TraceRequest] = []
+    t = 0.0
+    burst_left = 0
+    for i in range(n):
+        if kind == "uniform":
+            t += float(rng.exponential(1.0 / mean_rate))
+            rows = int(rng.integers(1, max_rows + 1))
+        elif kind == "bursty":
+            if burst_left == 0:
+                t += float(rng.exponential(8.0 / mean_rate))  # quiet gap
+                burst_left = int(rng.integers(3, 12))
+            t += float(rng.exponential(1.0 / (5.0 * mean_rate)))
+            burst_left -= 1
+            rows = 1 if rng.random() < 0.7 else \
+                int(rng.integers(2, max_rows + 1))
+        elif kind == "diurnal":
+            phase = 2.0 * math.pi * i / n
+            rate = mean_rate * (0.55 + 0.45 * math.sin(phase))
+            t += float(rng.exponential(1.0 / max(rate, mean_rate / 10.0)))
+            rows = int(rng.integers(1, max_rows + 1))
+        else:                            # heavytail
+            t += float(rng.exponential(1.0 / mean_rate))
+            rows = min(max_rows, int(rng.zipf(1.7)))
+        tenant = tenants[i % len(tenants)]
+        priority = priorities[i % len(priorities)]
+        dl = (deadline_ms if deadline_ms is not None
+              and priority == "interactive" else None)
+        out.append(TraceRequest(t=t, rows=rows, tenant=tenant,
+                                priority=priority, deadline_ms=dl))
+    return out

@@ -6,6 +6,10 @@ compiled on first use with ``nvcc`` for ``sm_90a`` into ``_build/`` of this
 package (listed in ``.gitignore``) as a shared library keyed by the content
 of the source and of every header it includes, and the flags, and loaded
 with ``ctypes``.  Nothing is built when a module is imported.
+
+Each wrapper counts its launches in attributes of its function
+(``launches``, ``launches_by_route``) through :func:`count_launch`, which
+adds under one lock: serving workers launch from several threads at once.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
@@ -111,3 +116,12 @@ def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
                 _loaded[name] = lib       # keep the library loaded
                 _loaded[key] = fn
     return fn
+
+
+def count_launch(fn, route=None) -> None:
+    """One launch of ``fn``'s kernel: add one to ``fn.launches`` and, with
+    a ``route``, to ``fn.launches_by_route[route]``, atomically."""
+    with _count_lock:
+        fn.launches += 1
+        if route is not None:
+            fn.launches_by_route[route] += 1

@@ -358,8 +358,7 @@ def conv2d_nchwc(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"conv2d_nchwc launch failed ({route}): "
                            f"cudaError_t {err}")
-    conv2d_nchwc.launches += 1
-    conv2d_nchwc.launches_by_route[route] += 1
+    _build.count_launch(conv2d_nchwc, route)
     return out
 
 

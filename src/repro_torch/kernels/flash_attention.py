@@ -177,8 +177,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention ({route}) launch failed: "
                            f"error {err} (a cudaError_t; 10000 + a CUresult "
                            "of the tensor-map encoder; 20000: no encoder)")
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[route] += 1
+    _build.count_launch(flash_attention, route)
     return out
 
 

@@ -228,8 +228,7 @@ def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *,
         raise RuntimeError(f"matmul_blocked ({route}) launch failed: error "
                            f"{err} (a cudaError_t; 10000 + a CUresult of the "
                            "tensor-map encoder; 20000: no encoder)")
-    matmul_blocked.launches += 1
-    matmul_blocked.launches_by_route[route] += 1
+    _build.count_launch(matmul_blocked, route)
     return out
 
 

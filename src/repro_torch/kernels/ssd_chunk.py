@@ -143,7 +143,7 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, acum: torch.Tensor,
                            plan["heads"], vec, stream)
     if err != 0:
         raise RuntimeError(f"ssd_intra launch failed: cudaError_t {err}")
-    ssd_intra.launches += 1
+    _build.count_launch(ssd_intra)
     return out
 
 

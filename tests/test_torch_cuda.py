@@ -375,3 +375,34 @@ def test_artifact_saved_and_loaded_on_card(card, tmp_path, use_kernel,
     on_cpu = InferenceSession.load(tmp_path / "art", device="cpu")
     np.testing.assert_allclose(on_cpu.predict(x.cpu()).numpy(), y.numpy(),
                                **E2E_TOL)
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_served_on_card_bit_identical_at_the_fixed_bucket(card, workers):
+    """``AsyncServer`` on a card session, each worker on its own stream:
+    every response equals ``padded_predict`` at the fixed bucket bit for
+    bit, whichever worker ran it, and B1 launches once per conv node per
+    executed batch."""
+    from repro_torch.engine import (AsyncServer, DynamicBatchPolicy,
+                                    padded_predict)
+
+    sess = compile("resnet-18", (1, 3, 64, 64), device=card)
+    sess.specialize(4)
+    rng = np.random.default_rng(0)
+    xs = [rng.normal(size=(int(rng.integers(1, 3)), 3, 64, 64))
+          .astype(np.float32) for _ in range(12)]
+    refs = [padded_predict(sess, x, bucket=4).cpu().numpy() for x in xs]
+    n_convs = sum(1 for nd in sess.plan_for(4).planned.graph.topo_order()
+                  if nd.op in ("conv_block", "conv2d"))
+    launches = kmod.conv2d_nchwc.launches
+    with AsyncServer(sess, DynamicBatchPolicy(max_batch=4, max_wait_ms=2.0,
+                                              fixed_bucket=4),
+                     workers=workers) as srv:
+        futs = [srv.submit(x if i % 2 else torch.from_numpy(x).to(card))
+                for i, x in enumerate(xs)]
+        got = [f.result(timeout=120).cpu().numpy() for f in futs]
+    for g, r in zip(got, refs):
+        assert g.tobytes() == r.tobytes()
+    st = srv.stats
+    assert st.n_completed == len(xs) and st.n_failed == 0
+    assert kmod.conv2d_nchwc.launches - launches == n_convs * st.n_batches
