@@ -57,7 +57,11 @@ Phases, each a function of a device and a size:
                 (each case naming the route it took) at qwen2-1.5b's,
                 arctic-480b's and kimi-k2's prefill shapes, plus ragged,
                 windowed, non-causal, MHA, head dims 80 and 112 on both
-                routes, and reduced cases;
+                routes, and reduced cases, and at the A8 families' shapes
+                (recurrentgemma-2b's window of 2,048 at 4,608 tokens and
+                head dim 256, llava's 3,392 tokens, whisper-tiny's
+                non-causal 1,500 and its cross-attention of 1, 4 and 448
+                queries against 1,500 keys);
                 B4 (two launches bit-identical) at mamba2-130m's, with
                 slow, steep, no and overflowing decay, and ragged shapes;
 5. lm_main    — ``compile("qwen2-1.5b", (1, 2048))`` answers four requests
@@ -84,8 +88,9 @@ Phases, each a function of a device and a size:
                 device time by node group and by kernel over batch-1
                 predicts from a ``torch.profiler`` trace that must hold
                 every B1 launch (as in phase 9);
-8. lm_times   — B3 per prefill bucket and at arctic-480b's and kimi-k2's
-                2,048-token shapes (kernel, plain, SDPA, bound), B4 at
+8. lm_times   — B3 per prefill bucket, at arctic-480b's and kimi-k2's
+                2,048-token shapes and at the A8 families' (kernel, plain,
+                SDPA, bound over the pairs its masks keep), B4 at
                 mamba2's prefill shapes (kernel by events and by profiler
                 device time, plain, both bounds), B2 at the
                 router shapes in bf16 and fp32 (kernel by events and by
@@ -93,7 +98,9 @@ Phases, each a function of a device and a size:
                 softmax on fp32 copies and on the bf16 operands); per model
                 prefill ms per bucket and the card's time per
                 full-bucket prefill, decode ms per
-                token, tokens/s at batch 1 and 4, peak device memory, and
+                token, tokens/s at batch 1 and 4, peak device memory of a
+                largest-bucket generate and 16 decode steps at the
+                cache's last positions, and
                 the card's idle share over a decode loop from a
                 ``torch.profiler`` trace;
 9. zoo        — phase 3 for vgg-16 at 224, densenet-121 at 224,
@@ -168,7 +175,21 @@ Phases, each a function of a device and a size:
                 streamed prefill; nothing may fail outside the chaos step.
                 The earlier models' sessions are released before
                 arctic-480b's phases, and each phase prints the card's
-                peak allocated memory.
+                peak allocated memory and the script's elapsed seconds.
+12. a8        — A8 on the card, after arctic-480b's weights are released
+                (``phase_a8``): recurrentgemma-2b at full depth through
+                ``compile("recurrentgemma-2b", (1, 4608))`` (buckets
+                1,152 below its window of 2,048, 2,304 and 4,608 past it)
+                answering three requests, B3 8 times a prefill (sm90);
+                llava-next-mistral-7b at full depth: 2,880 stub image
+                embeddings and 512 text tokens through the model's
+                ``prefill``, 32 ``decode_step``s, B3 32 times a prefill;
+                whisper-tiny: 1,500 stub frames and a 4-token prompt, 60
+                decode steps at batch 1 and 4, B3 12 times a prefill and 4
+                (the cross-attention, 1,500 keys) a decode step; each
+                model's end-to-end line as in phase 8; then fp32 copies at
+                full width against the CPU (recurrentgemma at 3 layers
+                with a bucket past its window, llava and whisper at 2).
 
     python3 chip_smoke.py --latency-only
 
@@ -185,11 +206,22 @@ and the card's time per 2,048-token prefill.
 
     python3 chip_smoke.py --tuning-only
 
-runs the tuning phase alone, and
+runs the tuning phase alone,
+
+    python3 chip_smoke.py --a8-only
+
+B3 at the A8 families' shapes and phase 12 alone, and
 
     python3 chip_smoke.py --serving-only
 
-the serving phase alone, on sessions it compiles itself.
+the serving phase alone, on sessions it compiles itself, and
+
+    python3 chip_smoke.py --b3-times [CHECKOUT]
+
+B3 at the earlier slices' causal prefill shapes (qwen2-1.5b's buckets,
+arctic-480b's and kimi-k2's 2,048 tokens) with the kernel of CHECKOUT
+(default this one), one JSON line: an A/B of two commits runs it for each
+checkout, in turns, in one call.
 
 Run with no arguments, it prints one JSON line per item, the card's
 ``nvidia-smi`` name and power limit, the kernels' summary line, and as its
@@ -221,6 +253,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()     # the script's start, for each phase's end
 MODEL, IMAGE, BIG_BATCH = "resnet-50", 224, 8
 KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc_sm90.cu"
 KERNEL_NAMES = ("conv2d_nchwc_sm90", "matmul_blocked", "matmul_splitk",
@@ -1597,7 +1630,8 @@ KIMI_N = 384                         # kimi-k2's experts (its d_model is 7,168)
 
 
 def attn_cases() -> list:
-    """(name, B, Hq, Hkv, S, D, causal, window, dtype)."""
+    """(name, B, Hq, Hkv, S, D, causal, window, dtype, Sk): Sk, the keys'
+    length, is S but for cross-attention."""
     bf, f32 = torch.bfloat16, torch.float32
     cases = []
     for s in (512, 1024, 2048):
@@ -1629,17 +1663,44 @@ def attn_cases() -> list:
               ("noncausal_s512_float32", 1, 12, 2, 512, 128, False, 0, f32),
               ("mha_d64_s333_float32", 2, 4, 4, 333, 64, True, 0, f32),
               ("reduced_d16_s40_float32", 2, 4, 2, 40, 16, True, 0, f32)]
+    # the A8 families' shapes: recurrentgemma-2b's banded prefill (10:1,
+    # head dim 256, window 2,048) at each of its buckets, llava's 2,880
+    # image + 512 text tokens (32:8), whisper-tiny's non-causal encoder
+    # (1,500 frames, 6 heads of 64), its causal decoder self-attention over
+    # a 4-token prompt, and its cross-attention (queries of a prompt and of
+    # a decode step, and a full decoder context of 448, against the 1,500
+    # encoder positions), each at the batches the main path runs (1 and
+    # 4); fp32 at one shape each
+    cases = [(*c, c[4]) for c in cases]
+    cases += [(f"rgemma_window2048_s{s}_bfloat16", 1, 10, 1, s, 256, True,
+               2048, bf, s) for s in (1152, 2304, 4608)]
+    cases += [(f"whisper_dec_b{b}_s4_bfloat16", b, 6, 6, 4, 64, True, 0, bf,
+               4) for b in (1, 4)]
+    cases += [("rgemma_window2048_s2304_float32", 1, 10, 1, 2304, 256, True,
+               2048, f32, 2304),
+              ("llava_s3392_bfloat16", 1, 32, 8, 3392, 128, True, 0, bf,
+               3392),
+              ("whisper_enc_s1500_bfloat16", 1, 6, 6, 1500, 64, False, 0, bf,
+               1500),
+              ("whisper_enc_b4_s1500_bfloat16", 4, 6, 6, 1500, 64, False, 0,
+               bf, 1500),
+              ("whisper_enc_s1500_float32", 1, 6, 6, 1500, 64, False, 0, f32,
+               1500)]
+    cases += [(f"whisper_cross_b{b}_q{s}_k1500_{str(dt)[6:]}", b, 6, 6, s,
+               64, False, 0, dt, 1500)
+              for b, s, dt in ((1, 1, bf), (4, 1, bf), (1, 4, bf), (4, 4, bf),
+                               (1, 448, bf), (1, 4, f32))]
     return cases
 
 
 B3_ROUTE = {torch.bfloat16: "sm90", torch.float32: "fma"}
 
 
-def attn_inputs(b, hq, hkv, s, d, dtype, device, seed=0):
+def attn_inputs(b, hq, hkv, s, d, dtype, device, seed=0, sk=None):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q, k, v = (torch.randn((b, h, s, d), generator=g).to(device=device,
+    q, k, v = (torch.randn((b, h, n, d), generator=g).to(device=device,
                                                          dtype=dtype)
-               for h in (hq, hkv, hkv))
+               for h, n in ((hq, s), (hkv, sk or s), (hkv, sk or s)))
     return q, k, v
 
 
@@ -1860,16 +1921,17 @@ def phase_lm_b2(device) -> dict:
     return worst
 
 
-def phase_lm_b3(device) -> float:
-    """B3 against its plain version on every ``attn_cases`` case, each
-    line naming the route the launch took; returns the largest abs
-    error."""
+def phase_lm_b3(device, cases=None) -> float:
+    """B3 against its plain version on every ``attn_cases`` case (or
+    ``cases``), each line naming the route the launch took; returns the
+    largest abs error."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
     worst = 0.0
-    for name, b, hq, hkv, s, d, causal, window, dt in attn_cases():
-        q, k, v = attn_inputs(b, hq, hkv, s, d, dt, device)
+    for name, b, hq, hkv, s, d, causal, window, dt, sk in \
+            cases or attn_cases():
+        q, k, v = attn_inputs(b, hq, hkv, s, d, dt, device, sk=sk)
         before = dict(flash_attention.launches_by_route)
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -1884,7 +1946,7 @@ def phase_lm_b3(device) -> float:
                                * want.float().abs())).max())
         err = float(diff.max())
         emit({"phase": "lm_kernel_vs_plain", "kernel": "flash_attention",
-              "case": name, "route": routes, "max_abs_err": err,
+              "case": name, "sk": sk, "route": routes, "max_abs_err": err,
               "gate_share": share, **tol})
         if routes != [B3_ROUTE[dt]]:
             raise RuntimeError(f"B3 {name}: took route {routes}, expected "
@@ -1999,10 +2061,18 @@ def moe_recording():
 def lm_kernels_of(cfg) -> dict:
     """The kernels a model's requests launch on the card, each with its
     launches per prefill and per decode step: B3 in every attention
-    prefill, B4 in every Mamba-2 prefill, B2 in every MoE router."""
+    prefill (hybrid: its banded layers; encdec: the encoder's, the
+    decoder's and its cross-attention) and in every cross-attention of an
+    encdec decode step, B4 in every Mamba-2 prefill, B2 in every MoE
+    router."""
     n = cfg.n_layers
     if cfg.family == "ssm":
         return {"ssd_intra": (n, 0)}
+    if cfg.family == "hybrid":
+        return {"flash_attention": (sum(cfg.layer_kind(i) == "attn"
+                                        for i in range(n)), 0)}
+    if cfg.family == "encdec":
+        return {"flash_attention": (cfg.enc_layers + 2 * n, n)}
     out = {"flash_attention": (n, 0)}
     if cfg.family == "moe":
         out["matmul_blocked"] = (n, n)
@@ -2035,6 +2105,28 @@ LM_KERNEL_ROWS = (
      "src/repro/kernels/ssd_chunk.py:46", 2))
 LM_REQUESTS = ((2048, 1), (1024, 64), (700, 64), (100, 32))
 LM_BIG = (4, 1024, 512, 32)     # batch, max_len, prompt, new tokens
+# The A8 families at full width, bf16.  recurrentgemma-2b (hybrid) through
+# the session: buckets {1,152, 2,304, 4,608} against its window of 2,048,
+# so one prefill lies below the window and two roll the ring (by 256 and
+# 512); the second request decodes 31 steps on the full ring.  Its parity
+# copy: 3 layers (rec, rec, attn), a 2,304 bucket past the window and 9
+# decode steps on the ring.
+HYBRID = "recurrentgemma-2b"
+HYBRID_MAX_LEN = 4608
+HYBRID_REQUESTS = ((1200, 16), (2304, 32), (4608, 1))
+HYBRID_PARITY = dict(n_layers=3, max_len=4608, prompt=2306, new=8)
+# llava-next-mistral-7b (vlm; 2,880 image tokens from a stub frontend) and
+# whisper-tiny (encdec; 1,500 frames) through the model's prefill and
+# decode_step, as the reference's tests drive them: (max_len, text prompt,
+# new tokens, batches).  Parity copies at 2 layers, llava's with 256
+# image tokens and whisper's with 2 encoder layers.
+FRONTEND = {"llava-next-mistral-7b": (4096, 512, 32, (1,)),
+            "whisper-tiny": (448, 4, 60, (1, 4))}
+FRONTEND_PARITY = {
+    "llava-next-mistral-7b": dict(n_layers=2, n_img_tokens=256, max_len=512,
+                                  prompt=64, new=8),
+    "whisper-tiny": dict(n_layers=2, enc_layers=2, max_len=448, prompt=4,
+                         new=8)}
 
 
 def arctic_config():
@@ -2046,8 +2138,9 @@ def arctic_config():
 def phase_lm_main(device, model, max_len: int = 2048,
                   requests=LM_REQUESTS, big=LM_BIG, seed: int = 0) -> dict:
     """The user's LM path: ``compile(model, (1, max_len))`` answers
-    ``requests`` (prompt length, new tokens), then a batch-``big[0]``
-    session over the same weights answers one request.  Every count is set
+    ``requests`` (prompt length, new tokens), then (unless ``big`` is
+    None) a batch-``big[0]`` session over the same weights answers one
+    request.  Every count is set
     to 0 just before and read just after; on the card each of the model's
     kernels (``lm_kernels_of``) must launch its count per prefill and per
     decode step, and no other kernel.  A MoE model reports the dropped
@@ -2062,11 +2155,13 @@ def phase_lm_main(device, model, max_len: int = 2048,
     compile_s = time.perf_counter() - t0
     cfg = session.cfg
     kernels = lm_kernels_of(cfg)
-    bsz, big_len, big_prompt, big_new = big
-    big_session = compile(cfg, (bsz, big_len), params=session._params,
-                          device=device)
-    work = [(session, (1, n), new) for n, new in requests] \
-        + [(big_session, (bsz, big_prompt), big_new)]
+    work = [(session, (1, n), new) for n, new in requests]
+    big_session = None
+    if big is not None:
+        bsz, big_len, big_prompt, big_new = big
+        big_session = compile(cfg, (bsz, big_len), params=session._params,
+                              device=device)
+        work.append((big_session, (bsz, big_prompt), big_new))
     prompts = [rng.integers(0, cfg.vocab, size=shape) for _, shape, _ in work]
 
     outs, per_request, t_gen, traced = [], [], [], []
@@ -2146,7 +2241,8 @@ def phase_lm_main(device, model, max_len: int = 2048,
     out = {"phase": "lm_main", "model": session.model_name,
            "n_layers": cfg.n_layers, "kernels": sorted(kernels),
            "requests": [[list(shape), new] for _, shape, new in work],
-           "buckets": [session.seq_buckets, big_session.seq_buckets],
+           "buckets": [sess.seq_buckets for sess in
+                       dict.fromkeys(w[0] for w in work)],
            "prefills": n_prefills,
            "launches": sum(counts[k] for k in kernels),
            "launches_by_kernel": {k: counts[k] for k in kernels},
@@ -2156,6 +2252,11 @@ def phase_lm_main(device, model, max_len: int = 2048,
            "generate_ms": t_gen}
     if moe:
         out["moe_prefills"] = moe
+    if cfg.family == "hybrid":
+        # each bucket's ring: a prefill at least a window long rolls it
+        w = min(cfg.local_window, max_len)
+        out.update(window=w, ring_rolls={str(b): b % w for b in
+                                         session.seq_buckets if b >= w})
     emit(out)
     return {"session": session, "big_session": big_session, **out}
 
@@ -2209,7 +2310,10 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
     reference's tokens, every step's logits must agree to ``tol`` of the
     largest logit; ``generate``'s greedy tokens must be equal at every step
     whose top-2 margin on the reference exceeds that tolerance, up to the
-    first near-tie that changes a token.  For a MoE model the routing
+    first near-tie that changes a token.  A vlm or encdec model runs the
+    whole prompt through the model's ``prefill`` with its stub frontend's
+    inputs (``frontend_inputs``) and decodes with ``decode_step``
+    (``model_generate``), on both sides.  For a MoE model the routing
     margin rule also holds: steps at or after the first position whose
     router has a near-tie on the reference side (``routing_near_ties``)
     are reported and left out of both comparisons.  Because that tie may
@@ -2230,15 +2334,23 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
     dut = compile_lm(cfg, max_len=max_len, params=dut_p)
     toks = np.random.default_rng(seed + 2).integers(0, cfg.vocab,
                                                     size=(1, prompt))
+    extra = frontend_inputs(cfg, 1, seed + 3)
+
+    def gen(sess, pick=None):
+        if not extra:
+            return sess.generate(toks, new, pick=pick)
+        return model_generate(sess._params, cfg, toks, new, max_len, extra,
+                              pick=pick)[0]
+
     want_logits, got_logits = [], []
     routes0, mm_routes0 = b3_routes(), b2_routes()
     with moe_recording() as calls:
-        want_tokens = ref.generate(toks, new, pick=_recording(want_logits))
+        want_tokens = gen(ref, pick=_recording(want_logits))
     moe = cfg.family == "moe"
     ties = routing_near_ties(calls, cfg.n_layers, cfg.top_k) if moe else []
     # step i's logits are those of position prompt - 1 + i
     steps = [i for i in range(new) if not ties or prompt - 1 + i < ties[0]]
-    dut.generate(toks, new, pick=_recording(got_logits, feed=want_tokens))
+    gen(dut, pick=_recording(got_logits, feed=want_tokens))
     pairs = [(want_logits[i], got_logits[i]) for i in steps]
     if moe:
         seq = np.concatenate([toks, want_tokens[:, :-1]], axis=1)
@@ -2261,7 +2373,7 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
     if errs and max(errs) > tol:
         raise RuntimeError(f"{model}: logits differ by {max(errs):.3g} of "
                            f"the largest logit (tolerance {tol})")
-    got_tokens = dut.generate(toks, new)
+    got_tokens = gen(dut)
     # fp32 attention on the card takes B3's FMA route, and only it
     routes = {r: n - routes0[r] for r, n in b3_routes().items()}
     on_card = torch.device(device).type == "cuda"
@@ -2292,7 +2404,8 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
             break
     out = {"phase": "lm_parity", "model": base.name, "n_layers": n_layers,
            "overrides": overrides, "dtype": "float32", "prompt": prompt,
-           "bucket": ref.bucket_for(prompt), "new_tokens": new,
+           "bucket": prompt if extra else ref.bucket_for(prompt),
+           "new_tokens": new,
            "max_logit_err_rel": max(errs, default=None),
            "logit_tol_rel": tol, "steps_compared": len(steps),
            "tokens_compared": compared, "b3_launches_by_route": routes,
@@ -2307,16 +2420,206 @@ def phase_lm_parity(device, model, n_layers: int = 2, max_len: int = 1024,
 
 
 # ---------------------------------------------------------------------------
+# 12. a8: the stub-frontend families through the model's entry points
+# (phase_a8 runs them with the hybrid one, after arctic-480b)
+# ---------------------------------------------------------------------------
+
+def frontend_inputs(cfg, batch: int, seed: int) -> dict:
+    """A stub frontend's inputs, N(0, 1) fp32 on the host from ``seed``: a
+    vlm's image embeddings (B, n_img_tokens, d) or an encdec's frame
+    embeddings (B, enc_positions, d); none for the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        shape, key = (batch, cfg.n_img_tokens, cfg.d_model), "img_embeds"
+    elif cfg.family == "encdec":
+        shape, key = (batch, cfg.enc_positions, cfg.d_model), "frames"
+    else:
+        return {}
+    return {key: torch.from_numpy(rng.standard_normal(shape,
+                                                      dtype=np.float32))}
+
+
+def model_generate(params, cfg, toks, new: int, max_len: int, extra: dict,
+                   pick=None):
+    """Greedy decode through the model's own entry points: ``prefill`` of
+    the whole prompt with ``extra`` (``frontend_inputs``), then
+    ``decode_step`` from the position after the prefill (a vlm's image
+    tokens come first).  ``pick`` as in ``LMSession.generate``.  Returns
+    the (B, new) int32 tokens and, for the prefill and each decode step,
+    the launches of each kernel it made."""
+    from repro_torch.models.lm.model import decode_step, prefill
+
+    fns = _kernel_fns()
+    dev = params["embed"].device
+    t = torch.as_tensor(toks).to(dev)
+    pos = t.shape[1] + (extra["img_embeds"].shape[1]
+                        if "img_embeds" in extra else 0)
+    before = read_counts()
+    cache, logits = prefill(params, cfg, t, max_len=max_len,
+                            **{k: v.to(dev) for k, v in extra.items()})
+    calls = [{k: f.launches - before[k] for k, f in fns.items()}]
+    out = []
+    for i in range(new):
+        nxt = logits.argmax(dim=-1) if pick is None \
+            else pick(i, logits).to(dev)
+        out.append(nxt.cpu().numpy().astype(np.int32))
+        if i + 1 < new:
+            before = read_counts()
+            logits, cache = decode_step(params, cfg, nxt[:, None], cache,
+                                        pos + i)
+            calls.append({k: f.launches - before[k]
+                          for k, f in fns.items()})
+    return np.stack(out, axis=1), calls
+
+
+def phase_lm_frontend(device, model, max_len: int, prompt: int, new: int,
+                      batches=(1,), seed: int = 0) -> dict:
+    """A vlm or encdec model at full width (random bf16 weights from
+    ``seed``), driven as its users drive it: for each batch size, its stub
+    frontend's inputs and a random prompt through ``model_generate``.
+    Every count is set to 0 just before and read just after; on the card
+    B3 must launch its count (``lm_kernels_of``) in every prefill and
+    every decode step, all on sm90, and no other kernel."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.lm.model import init_params, prefill
+
+    cfg = ARCHS[model] if isinstance(model, str) else model
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=device)
+    init_s = time.perf_counter() - t0
+    pp, pd = lm_kernels_of(cfg)["flash_attention"]
+    runs = []
+    reset_counts()
+    for b in batches:
+        extra = frontend_inputs(cfg, b, seed + 10 * b)
+        toks = np.random.default_rng(seed + 10 * b + 1).integers(
+            0, cfg.vocab, size=(b, prompt))
+        t1 = time.perf_counter()
+        y, calls = model_generate(params, cfg, toks, new, max_len, extra)
+        ms = (time.perf_counter() - t1) * 1e3
+        got = [c["flash_attention"] for c in calls]
+        want = [pp * on_card] + [pd * on_card] * (new - 1)
+        if got != want:
+            raise RuntimeError(f"{cfg.name}: B3 launches per call {got}, "
+                               f"expected {want}")
+        if y.shape != (b, new) or y.min() < 0 or y.max() >= cfg.vocab:
+            raise RuntimeError(f"{cfg.name}: bad tokens {y.shape}")
+        runs.append({"batch": b, "prompt": prompt,
+                     "prefill_tokens": prompt + (cfg.n_img_tokens
+                                                 if cfg.family == "vlm"
+                                                 else 0),
+                     "new": new, "generate_ms": ms,
+                     "b3_per_prefill": got[0],
+                     "b3_per_decode_step": sorted(set(got[1:]))})
+    counts, routes = read_counts(), b3_routes()
+    others = {k: v for k, v in counts.items()
+              if k != "flash_attention" and v}
+    if others:
+        raise RuntimeError(f"{cfg.name}: unexpected kernel launches {others}")
+    if routes != {"sm90": counts["flash_attention"], "fma": 0}:
+        raise RuntimeError(f"{cfg.name}: B3 launches by route {routes}")
+    # the last logits of a prefill are finite and of vocab width (after
+    # the counts were read)
+    extra = frontend_inputs(cfg, 1, seed)
+    _, logits = prefill(params, cfg, torch.from_numpy(toks[:1]).to(device),
+                        max_len=max_len,
+                        **{k: v.to(device) for k, v in extra.items()})
+    if logits.shape != (1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise RuntimeError(f"{cfg.name}: bad prefill logits {logits.shape}")
+    out = {"phase": "lm_frontend", "model": cfg.name, "family": cfg.family,
+           "n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "max_len": max_len, "init_s": init_s, "runs": runs,
+           "launches": counts["flash_attention"],
+           "b3_launches_by_route": routes}
+    emit(out)
+    return {"params": params, "cfg": cfg, **out}
+
+
+def phase_lm_frontend_e2e(run: dict, device, decode_steps: int = 32) -> dict:
+    """``phase_lm_e2e`` for a ``phase_lm_frontend`` run, on the host clock
+    around work that ends in a synchronize: at each batch size a prefill
+    of the prompt and the frontend's inputs (median of 5) and a decode
+    step (median of ``decode_steps``, from the position after it); the
+    card's time per batch-1 prefill and the idle share of a batch-1
+    decode step from profiler traces; the weights plus what the largest
+    batch's generate allocates on top."""
+    from repro_torch.models.lm.model import decode_step, prefill
+
+    params, cfg = run["params"], run["cfg"]
+    out = {"phase": "lm_e2e", "model": cfg.name}
+    rng = np.random.default_rng(9)
+    for r in run["runs"]:
+        b = r["batch"]
+        extra = {k: v.to(device) for k, v in
+                 frontend_inputs(cfg, b, 9).items()}
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                             size=(b, r["prompt"]))).to(device)
+
+        def pre():
+            return prefill(params, cfg, toks, max_len=run["max_len"],
+                           **extra)
+
+        out[f"prefill_ms_batch{b}"] = statistics.median(_host_ms(pre, 5))
+        cache, _ = pre()
+        tok = toks[:, -1:]
+        pos = iter(range(r["prefill_tokens"], run["max_len"]))
+
+        def step():
+            return decode_step(params, cfg, tok, cache, next(pos))
+
+        ms = statistics.median(_host_ms(step, decode_steps))
+        out[f"decode_ms_batch{b}"] = ms
+        out[f"decode_tokens_per_s_batch{b}"] = b * 1e3 / ms
+        if b == 1:
+            out["prefill_profile"] = {"tokens": r["prefill_tokens"],
+                                      **_device_busy(pre, 3)}
+            prof = _device_busy(step, 16)
+            if prof["device_ms"] != "not measured":
+                prof["idle_share_unprofiled"] = 1 - prof["device_ms"] / ms
+            out["decode_profile"] = prof
+    big = run["runs"][-1]
+    toks = np.random.default_rng(3).integers(0, cfg.vocab,
+                                             size=(big["batch"], big["prompt"]))
+    extra = frontend_inputs(cfg, big["batch"], 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    model_generate(params, cfg, toks, big["new"], run["max_len"], extra)
+    torch.cuda.synchronize()
+    extra_bytes = torch.cuda.max_memory_allocated(device) - base
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out.update(weights_bytes=weights, generate_extra_bytes=extra_bytes,
+               peak_memory_bytes=weights + extra_bytes,
+               peak_memory_request=[big["batch"], big["prefill_tokens"],
+                                    big["new"]])
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 8. lm_times
 # ---------------------------------------------------------------------------
 
-def attn_bound(b, hq, hkv, s, d, dtype) -> dict:
-    """Least time of one B3 launch: the causal half of the two products,
-    4 * B * Hq * D * S(S+1)/2 FLOP, over the peak of the input type, or
-    q, k, v and o read or written once over the memory rate."""
-    flop = 4 * b * hq * d * s * (s + 1) // 2
+def attn_pairs(s, sk, causal=True, window=0) -> int:
+    """The (query, key) pairs that the masks keep: key j < Sk for query i
+    < S, j <= i if causal, i - j < window if windowed."""
+    q = np.arange(s)
+    hi = np.minimum(q, sk - 1) if causal else np.full(s, sk - 1)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def attn_bound(b, hq, hkv, s, d, dtype, causal=True, window=0,
+               sk=None) -> dict:
+    """Least time of one B3 launch: the two products over the pairs the
+    masks keep (``attn_pairs``; S(S+1)/2 under the causal mask alone),
+    4 * B * Hq * D FLOP a pair, over the peak of the input type, or q, k,
+    v and o read or written once over the memory rate."""
+    sk = sk or s
+    flop = 4 * b * hq * d * attn_pairs(s, sk, causal, window)
     elt = 2 if dtype == torch.bfloat16 else 4
-    nbytes = elt * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    nbytes = elt * (2 * b * hq * s * d + 2 * b * hkv * sk * d)
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
     t_op, t_mem = flop / peak * 1e3, nbytes / MEM_BW * 1e3
     return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
@@ -2430,44 +2733,87 @@ def b2_times(device, iters: int = 20) -> list:
     return rows
 
 
+# (Hq, Hkv, S, D): B3's causal bf16 prefill shapes at batch 1 on the
+# earlier slices' LM paths, where S = Sk: qwen2-1.5b's three buckets,
+# arctic-480b's largest one and kimi-k2's (head dim 112)
+B3_EARLIER = tuple((12, 2, s, 128) for s in (512, 1024, 2048)) \
+    + ((56, 8, 2048, 128), (64, 8, 2048, 112))
+# (model, B, Hq, Hkv, S, D, causal, window, Sk): B3's shapes on the A8
+# families' main paths (the largest prefill of each, whisper's decode-step
+# cross-attention at batch 1 and 4 and its prompt's)
+A8_ATTN = (("recurrentgemma-2b", 1, 10, 1, 4608, 256, True, 2048, 4608),
+           ("llava-next-mistral-7b", 1, 32, 8, 3392, 128, True, 0, 3392),
+           ("whisper-tiny", 1, 6, 6, 1500, 64, False, 0, 1500),
+           ("whisper-tiny", 1, 6, 6, 4, 64, False, 0, 1500),
+           ("whisper-tiny", 1, 6, 6, 1, 64, False, 0, 1500),
+           ("whisper-tiny", 4, 6, 6, 1, 64, False, 0, 1500))
+
+
+def b3_row(device, b, hq, hkv, s, d, causal=True, window=0, sk=None,
+           iters: int = 10, model=None) -> dict:
+    """B3 at one bf16 shape: the kernel, its plain version and SDPA (a
+    boolean band mask where there is a window) with CUDA events, the
+    kernel and SDPA also by the card's time per call from a profiler
+    trace (at short shapes the events time the host's enqueue of
+    back-to-back calls), and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    sk = sk or s
+    q, k, v = attn_inputs(b, hq, hkv, s, d, torch.bfloat16, device, sk=sk)
+    mask = None
+    if window:
+        i = torch.arange(s, device=device)[:, None]
+        j = torch.arange(sk, device=device)[None]
+        mask = (i - j < window) & (j <= i if causal else True)
+
+    def kernel():
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    def sdpa():
+        if mask is not None:
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+
+    row = {"phase": "lm_times", "kernel": "flash_attention",
+           "shape": [b, hq, hkv, s, d], "sk": sk, "causal": causal,
+           "window": window, "dtype": "bfloat16",
+           "ms": cuda_ms(kernel, iters),
+           "plain_ms": cuda_ms(lambda: flash_attention_plain(
+               q, k, v, causal=causal, window=window), iters),
+           "library_ms": cuda_ms(sdpa, iters),
+           "device_ms": _device_busy(kernel, iters)["device_ms"],
+           "library_device_ms": _device_busy(sdpa, iters)["device_ms"],
+           **attn_bound(b, hq, hkv, s, d, torch.bfloat16, causal, window,
+                        sk)}
+    if model:
+        row["model"] = model
+    emit(row)
+    return row
+
+
 def phase_lm_kernel_times(device, iters: int = 10) -> dict:
     """B3 at qwen2-1.5b's prefill shapes (bf16, B = 1, the three buckets),
-    arctic-480b's largest one and kimi-k2's (head dim 112), B4 at
+    arctic-480b's largest one, kimi-k2's (head dim 112) and the A8
+    families' (``A8_ATTN``), B4 at
     mamba2-130m's (BC = 2, 4, 8) and B2 at arctic-480b's router shapes:
     kernel, plain version, library call (B3: SDPA; B2: torch's matmul and
     softmax) and bound, each ms with CUDA events; B3's and B4's rows also
     carry the card's time per call for the kernel (and SDPA, or B4's plain
     version) from a profiler trace."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
     from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
 
     rows = {"matmul_blocked": b2_times(device), "flash_attention": [],
             "ssd_intra": []}
-    for hq, hkv, s, d in [(12, 2, s, 128) for s in (512, 1024, 2048)] \
-            + [(56, 8, 2048, 128), (64, 8, 2048, 112)]:
-        q, k, v = attn_inputs(1, hq, hkv, s, d, torch.bfloat16, device)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True)
-
-        row = {"phase": "lm_times", "kernel": "flash_attention",
-               "shape": [1, hq, hkv, s, d], "dtype": "bfloat16",
-               "ms": cuda_ms(lambda: flash_attention(q, k, v), iters),
-               "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v),
-                                   iters),
-               "library_ms": cuda_ms(sdpa, iters),
-               # the card's own time per call, from a profiler trace: at
-               # the short buckets the events above time the host's
-               # enqueue of back-to-back calls, not the kernel
-               "device_ms": _device_busy(lambda: flash_attention(q, k, v),
-                                         iters)["device_ms"],
-               "library_device_ms": _device_busy(sdpa, iters)["device_ms"],
-               **attn_bound(1, hq, hkv, s, d, torch.bfloat16)}
-        emit(row)
-        rows["flash_attention"].append(row)
+    for hq, hkv, s, d in B3_EARLIER:
+        rows["flash_attention"].append(b3_row(device, 1, hq, hkv, s, d,
+                                              iters=iters))
+    for model, b, hq, hkv, s, d, causal, window, sk in A8_ATTN:
+        rows["flash_attention"].append(b3_row(
+            device, b, hq, hkv, s, d, causal, window, sk, iters, model=model))
     for name, bcn, h, q_, n, p, decay in ssd_cases()[:3]:
         args = ssd_inputs(bcn, h, q_, n, p, device, decay)
         row = {"phase": "lm_times", "kernel": "ssd_intra",
@@ -2607,10 +2953,13 @@ def prefill_profile(sess, device, iters: int = 3) -> dict:
 def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
     """One model's end-to-end numbers on the host clock around work that
     ends in a synchronize: prefill ms per bucket, decode ms per token at
-    batch 1 and at the batch-4 session, tokens/s, peak device memory of a
-    full-bucket prefill plus decode, and the idle share over a decode loop
-    of the batch-1 session; and the card's time per full-bucket prefill
-    from a profiler trace."""
+    batch 1 and at the batch-4 session (where ``phase_lm_main`` made one),
+    tokens/s, peak device memory of a generate whose prompt fills the
+    largest bucket (and up to 16 new tokens, as many as fit: 1 where that
+    bucket is ``max_len``) followed by 16 decode steps at the cache's last
+    positions over that prefill's cache, and the idle share over a decode
+    loop of the batch-1 session; and the card's time per full-bucket
+    prefill from a profiler trace."""
     from repro_torch.models.lm.model import decode_step, init_cache, prefill
 
     out = {"phase": "lm_e2e", "model": main_run["model"]}
@@ -2627,6 +2976,8 @@ def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
     out["prefill_ms"] = prefill_ms
     out["prefill_profile"] = prefill_profile(sess, device)
     for label, s in (("batch1", sess), ("batch4", big)):
+        if s is None:
+            continue
         cache = init_cache(cfg, s.batch, s.max_len, device)
         tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(s.batch, 1))
                                ).to(device)
@@ -2637,20 +2988,37 @@ def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
         out[f"decode_ms_{label}"] = ms
         out[f"decode_tokens_per_s_{label}"] = s.batch * 1e3 / ms
     # the model's own peak: its weights plus the most that one generate
-    # (a full-bucket prefill, then decode) allocates on top of what is
-    # already resident (other sessions' weights are not counted)
-    toks = rng.integers(0, cfg.vocab, size=(1, sess.max_len - 16))
+    # (a full-bucket prefill, then decode) and decode steps at the cache's
+    # last positions (which that generate does not reach when its bucket
+    # is max_len; each step rewrites the slot the prefill filled) allocate
+    # on top of what is already resident (other sessions' weights are not
+    # counted)
+    prompt = max(sess.seq_buckets)
+    new = min(16, sess.max_len - prompt + 1)
+    toks = rng.integers(0, cfg.vocab, size=(1, prompt))
+    tail = list(range(max(0, sess.max_len - 16), sess.max_len))
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    sess.generate(toks, 16)
+    sess.generate(toks, new)
+    cache, logits = prefill(sess._params, cfg,
+                            torch.from_numpy(toks).to(device),
+                            max_len=sess.max_len)
+    for p in tail:
+        tok = logits.argmax(-1, keepdim=True)
+        logits, cache = decode_step(sess._params, cfg, tok, cache, p)
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated(device) - base
+    if not torch.isfinite(logits).all():
+        raise RuntimeError(f"{main_run['model']}: non-finite logits at "
+                           f"position {tail[-1]}")
+    del cache, logits
     weights = sum(t.numel() * t.element_size()
                   for t in _leaves(sess._params))
     out.update(weights_bytes=weights, generate_extra_bytes=extra,
                peak_memory_bytes=weights + extra,
-               peak_memory_request=[int(toks.shape[1]), 16])
+               peak_memory_request=[prompt, new],
+               peak_memory_tail_positions=[tail[0], tail[-1]])
     cache = init_cache(cfg, 1, sess.max_len, device)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 1))).to(device)
     pos = iter(range(sess.max_len // 2, sess.max_len))
@@ -3716,17 +4084,60 @@ def phase_serving(device, smi: str, main_run: dict, lm_run: dict,
     return lines
 
 
-def _leaves(tree: dict):
-    for v in tree.values():
-        yield from _leaves(v) if isinstance(v, dict) else (v,)
+def _leaves(tree):
+    """The tensors of a parameter tree of dicts and lists."""
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, list):
+        yield tree
+        return
+    for v in tree:
+        yield from _leaves(v)
 
 
 # ---------------------------------------------------------------------------
+
+def _release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_a8(device, memory: list) -> dict:
+    """The A8 families at full width, bf16, one at a time, each released
+    before the next: recurrentgemma-2b through the session
+    (``phase_lm_main``, ``phase_lm_e2e``), llava-next-mistral-7b and
+    whisper-tiny through the model's entry points
+    (``phase_lm_frontend``, ``phase_lm_frontend_e2e``); then each
+    family's fp32 copy at a cut depth against the CPU."""
+    main, e2e = [], []
+    run = phase_lm_main(device, HYBRID, max_len=HYBRID_MAX_LEN,
+                        requests=HYBRID_REQUESTS, big=None)
+    memory.append(memory_line(f"lm_main {HYBRID}", device))
+    e2e.append(phase_lm_e2e(run, device))
+    run.pop("session")
+    run.pop("big_session")
+    main.append(run)
+    _release()
+    for m, (max_len, prompt, new, batches) in FRONTEND.items():
+        run = phase_lm_frontend(device, m, max_len, prompt, new, batches)
+        memory.append(memory_line(f"lm_frontend {m}", device))
+        e2e.append(phase_lm_frontend_e2e(run, device))
+        run.pop("params")
+        run.pop("cfg")
+        main.append(run)
+        _release()
+    parity = [phase_lm_parity(device, HYBRID, **HYBRID_PARITY)]
+    parity += [phase_lm_parity(device, m, **kw)
+               for m, kw in FRONTEND_PARITY.items()]
+    memory.append(memory_line("a8 parity", device))
+    return {"main": main, "e2e": e2e, "parity": parity}
+
 
 def memory_line(after: str, device) -> dict:
     """The card's peak allocated bytes since the last line, then a reset."""
     torch.cuda.synchronize(device)
     out = {"phase": "memory", "after": after,
+           "elapsed_s": time.perf_counter() - START,
            "max_allocated_bytes": torch.cuda.max_memory_allocated(device),
            "allocated_bytes": torch.cuda.memory_allocated(device)}
     emit(out)
@@ -3802,6 +4213,40 @@ def serving_only(device, smi: str) -> int:
     return 0
 
 
+def a8_only(device, smi: str) -> int:
+    """The A8 families alone: B3 at their shapes against its plain version
+    and timed (``A8_ATTN``), then ``phase_a8``; each kernel builds at its
+    first call."""
+    worst = phase_lm_b3(device, [c for c in attn_cases() if c[0].startswith(
+        ("rgemma", "llava", "whisper"))])
+    rows = [b3_row(device, b, hq, hkv, s, d, causal, window, sk, model=m)
+            for m, b, hq, hkv, s, d, causal, window, sk in A8_ATTN]
+    phase_a8(device, [])
+    emit({"phase": "a8_only", "card": smi, "b3_max_abs_err": worst,
+          "b3_device_ms": [r["device_ms"] for r in rows]})
+    return 0
+
+
+def b3_times(device, smi: str, tree: Path, iters: int = 20) -> int:
+    """B3 at ``B3_EARLIER`` with the kernel of the checkout at ``tree``
+    (its ``src`` first on the path, its kernels built at the first call),
+    one JSON line, so that two checkouts compare in one call on one card:
+    ``chip_smoke.py --b3-times OTHER`` for each, in the order A, B, B, A.
+    """
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import flash_attention as mod
+
+    rows = [b3_row(device, 1, hq, hkv, s, d, iters=iters)
+            for hq, hkv, s, d in B3_EARLIER]
+    emit({"phase": "b3_times", "card": smi, "tree": str(tree),
+          "module": mod.__file__,
+          "device_ms": {f"{hq}:{hkv} S{s} D{d}": r["device_ms"]
+                        for (hq, hkv, s, d), r in zip(B3_EARLIER, rows)},
+          "ms": [r["ms"] for r in rows],
+          "library_device_ms": [r["library_device_ms"] for r in rows]})
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--load-artifact"]:
         return load_artifact(sys.argv[2:])
@@ -3831,6 +4276,11 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--serving-only"]:
         return serving_only(device, smi)
+    if sys.argv[1:] == ["--a8-only"]:
+        return a8_only(device, smi)
+    if sys.argv[1:2] == ["--b3-times"] and len(sys.argv) <= 3:
+        return b3_times(device, smi, Path(sys.argv[2]).resolve()
+                        if len(sys.argv) == 3 else ROOT)
 
     build = phase_build()
     convs = plan_convs(MODEL, 1, IMAGE)
@@ -3901,6 +4351,11 @@ def main() -> int:
     memory.append(memory_line(f"lm_main {ARCTIC}", device))
     lm_e2e.append(phase_lm_e2e(lm_runs[ARCTIC], device))
     memory.append(memory_line(f"lm_e2e {ARCTIC}", device))
+    lm_runs[ARCTIC].pop("session")
+    lm_runs[ARCTIC].pop("big_session")
+    _release()
+    a8 = phase_a8(device, memory)
+    lm_e2e += a8["e2e"]
 
     def total(key, fallback):
         """Sum per batch-1 predict of each conv's ``key`` (a device time)
@@ -3938,20 +4393,22 @@ def main() -> int:
                     if "b1_per_predict" in t}}]
     # B2, B3 and B4: per prefill of the largest bucket (2,048 tokens at
     # batch 1), or for B2's splitk route per batch-1 decode step, i.e. one
-    # launch per layer at that shape.  B2's and B4's times are the card's
-    # own (from a profiler trace), B2's library call the one on its bf16
+    # launch per layer at that shape.  The kernels' times are the card's
+    # own (from a profiler trace; CUDA events where it saw none), as is
+    # B3's library call (SDPA); B2's library call is the one on its bf16
     # operands.
     for name, fn, route, model, source, replaces, row in LM_KERNEL_ROWS:
         run = lm_runs[model]
         n = run["n_layers"]
         r = lm_rows[fn][row]
         ms, lib = r["ms"], r["library_ms"]
-        if route is not None or fn == "ssd_intra":
-            dev = r["device_ms"]
-            ms = dev if isinstance(dev, float) else ms
+        dev = r["device_ms"]
+        ms = dev if isinstance(dev, float) else ms
         if route is not None:
             lib_dev = r.get("library_bf16_device_ms")
             lib = lib_dev if isinstance(lib_dev, float) else None
+        elif isinstance(r.get("library_device_ms"), float):
+            lib = r["library_device_ms"]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -3962,8 +4419,23 @@ def main() -> int:
             "bound_ms": n * r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None if lib is None else n * lib})
         if name == "flash_attention":
-            # the main path's B3 is the bf16 route; fp32 takes the FMA one
-            kernels[-1]["variant"] = "sm90: wgmma + TMA, bf16"
+            # the main path's B3 is the bf16 route; fp32 takes the FMA one.
+            # Its launches on each LM path, and its times at the A8
+            # families' shapes (the card's time a launch)
+            kernels[-1].update(variant="sm90: wgmma + TMA, bf16",
+                               ms_events=n * r["ms"],
+                               library_ms_events=n * r["library_ms"])
+            kernels[-1]["launches_by_path"] = {
+                **{m: r["launches_by_kernel"]["flash_attention"]
+                   for m, r in lm_runs.items()
+                   if "flash_attention" in r["launches_by_kernel"]},
+                **{r["model"]: r["launches"] for r in a8["main"]}}
+            kernels[-1]["a8_shapes"] = [
+                {k: x.get(k) for k in ("model", "shape", "sk", "causal",
+                                       "window", "device_ms", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_device_ms")}
+                for x in lm_rows["flash_attention"] if "model" in x]
         if name == "ssd_intra":
             kernels[-1].update(
                 variant="sm90: 3xTF32 wgmma, C.B^T scores shared across "
@@ -3979,7 +4451,7 @@ def main() -> int:
     result = {"card": smi, "build": build, "convs": rows,
               "main": {k: v for k, v in main_run.items() if k != "session"},
               "latency": latency, "profile": profile,
-              "lm_main": lm_main, "lm_parity": parity,
+              "lm_main": lm_main, "lm_parity": parity, "a8": a8,
               "variants": variants,
               "lm_kernel_times": lm_rows, "lm_e2e": lm_e2e, "zoo": zoo,
               "tuning": tuning["lines"], "artifacts": artifacts,

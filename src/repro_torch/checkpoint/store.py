@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import shutil
 import threading
 from pathlib import Path
@@ -93,20 +94,46 @@ def _unflatten_like(template, leaves: Dict[str, Any], prefix=""):
     return leaves[prefix]
 
 
+_STEP = re.compile(r"\.?([^.\[\]]+)|\[(\d+)\]")
+
+
+def _path_keys(path: str) -> list:
+    """``_flatten``'s path ``a.b[2].c`` as its keys ``["a", "b", 2, "c"]``."""
+    keys, end = [], 0
+    for m in _STEP.finditer(path):
+        if m.start() != end:
+            break
+        keys.append(m.group(1) if m.group(2) is None else int(m.group(2)))
+        end = m.end()
+    if end != len(path) or not keys:
+        raise ValueError(f"leaf path {path!r} is not a tree path")
+    return keys
+
+
 def unflatten_dicts(leaves: Dict[str, Any]) -> Dict[str, Any]:
-    """The nested-dict tree of ``_flatten``'s dotted paths, without a
-    template (a tree of dicts only: the LM parameter trees)."""
-    out: Dict[str, Any] = {}
+    """The tree of ``_flatten``'s paths without a template: dicts from the
+    dotted names, lists from the ``[i]`` indices (the LM parameter trees,
+    whose hybrid and encdec layers are lists of dicts).  A list must hold
+    every index from 0 up."""
+    root: Dict[str, Any] = {}
     for path, leaf in leaves.items():
-        if "[" in path:
-            raise ValueError(f"leaf path {path!r} holds a list index; "
-                             "restore it with a template")
-        *nodes, name = path.split(".")
-        d = out
+        *nodes, name = _path_keys(path)
+        d = root
         for k in nodes:
             d = d.setdefault(k, {})
         d[name] = leaf
-    return out
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            if sorted(node) != list(range(len(node))):
+                raise ValueError(f"list indices {sorted(node)} are not "
+                                 "0..n-1")
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
 
 
 def _to_host(leaf, copy: bool) -> Tuple[np.ndarray, str]:

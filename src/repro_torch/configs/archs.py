@@ -1,7 +1,5 @@
 """The 10 assigned architectures — exact configs from the assignment table
 (a copy of the JAX reference's ``repro/configs/archs.py``; pure data).
-The port runs the ``dense``, ``moe`` and ``ssm`` families so far (ROADMAP
-A8).
 
 Each entry has a PRODUCTION config (bf16, remat for the big ones; exercised
 only via the dry-run's ShapeDtypeStructs) and a REDUCED config of the same

@@ -5,14 +5,16 @@
 //   repro/kernels/flash_attention.py::flash_attention_pallas (body
 //   _attn_kernel), and computes what repro/models/lm/layers.py::
 //   flash_attention_xla computes, on the same tensors:
-//   q (B, HQ, S, D), k and v (B, HKV, S, D), contiguous fp32; o (B, HQ, S,
-//   D) fp32.  This is B3's fp32 route; bf16 takes the tensor-core kernel
+//   q (B, HQ, S, D), k and v (B, HKV, SK, D), contiguous fp32; o (B, HQ,
+//   S, D) fp32.  SK != S is cross-attention (keys of another sequence);
+//   the masks take absolute positions from 0 on both sides.  This is B3's fp32 route; bf16 takes the tensor-core kernel
 //   of flash_attention_sm90.cu.
 // GQA: query head h reads kv head h / (HQ / HKV); K and V are never
 // repeated.  Scale 1/sqrt(D), causal and local-window band masks, masked
 // scores set to NEG_INF = -1e30 (never -inf), denominator clamped at 1e-30,
-// fp32 inside.  Any S: the kernel masks the ragged last tiles itself
-// (k_pos < S, q_pos < S), where the Pallas kernel asserts S % block == 0.
+// fp32 inside.  Any S and SK: the kernel masks the ragged last tiles itself
+// (k_pos < SK, q_pos < S), where the Pallas kernel asserts S % block == 0
+// and SK == S.
 //
 // Work split.  One thread block per (q tile of BQ rows, q head, batch).  The
 // Pallas grid's sequential fourth axis (kv blocks) becomes a loop inside the
@@ -72,7 +74,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(Shape<D>::THREADS, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int hq,
-                       int hkv, int s, int causal, int window, float scale) {
+                       int hkv, int s, int sk, int causal, int window,
+                       float scale) {
   using SH = Shape<D>;
   constexpr int TPR = SH::TPR, E = SH::E, C4 = SH::C4, BQ = SH::BQ;
   extern __shared__ float4 smem4[];
@@ -89,8 +92,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (hq / hkv);
 
   const T* qp = q + ((size_t)(b * hq + h) * s) * D;
-  const T* kp = k + ((size_t)(b * hkv + hk) * s) * D;
-  const T* vp = v + ((size_t)(b * hkv + hk) * s) * D;
+  const T* kp = k + ((size_t)(b * hkv + hk) * sk) * D;
+  const T* vp = v + ((size_t)(b * hkv + hk) * sk) * D;
 
   // thread `part` owns elements d = (c * TPR + part) * 4 + e, c < C4, e < 4
   float qr[E], acc[E];
@@ -107,7 +110,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // kv tiles this q tile needs: up to its last row (causal), from the
   // first key its first row's window reaches
-  const int k_end = causal ? min(s, q_start + BQ) : s;
+  const int k_end = causal ? min(sk, q_start + BQ) : sk;
   int t0 = 0;
   if (window > 0) {
     const int lo = q_start - window + 1;
@@ -119,8 +122,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * D; i += SH::THREADS) {
       const int kpos = k0 + i / D;
       const size_t off = (size_t)kpos * D + i % D;
-      ks[i] = kpos < s ? to_f(kp[off]) : 0.f;
-      vs[i] = kpos < s ? to_f(vp[off]) : 0.f;
+      ks[i] = kpos < sk ? to_f(kp[off]) : 0.f;
+      vs[i] = kpos < sk ? to_f(vp[off]) : 0.f;
     }
     __syncthreads();
 
@@ -142,7 +145,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int off = TPR / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int kpos = k0 + j;
-      bool ok = kpos < s;
+      bool ok = kpos < sk;
       if (causal) ok = ok && q_pos >= kpos;
       if (window > 0) ok = ok && q_pos - kpos < window;
       sc[j] = ok ? dot * scale : NEG_INF;
@@ -188,7 +191,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int s, int causal, int window,
+           int hq, int hkv, int s, int sk, int causal, int window,
            cudaStream_t stream) {
   using SH = Shape<D>;
   auto kern = flash_attention_kernel<T, D>;
@@ -198,18 +201,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((s + SH::BQ - 1) / SH::BQ, hq, b);
   kern<<<grid, SH::THREADS, SH::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s, sk, causal,
       window, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
-               int hq, int hkv, int s, int d, int causal, int window,
-               cudaStream_t st) {
+               int hq, int hkv, int s, int sk, int d, int causal,
+               int window, cudaStream_t st) {
   switch (d) {
 #define HEAD_DIM(D) \
-  case D: return launch<T, D>(q, k, v, o, b, hq, hkv, s, causal, window, st);
+  case D:        \
+    return launch<T, D>(q, k, v, o, b, hq, hkv, s, sk, causal, window, st);
     HEAD_DIM(16) HEAD_DIM(32) HEAD_DIM(48) HEAD_DIM(64) HEAD_DIM(80)
     HEAD_DIM(96) HEAD_DIM(112) HEAD_DIM(128) HEAD_DIM(144) HEAD_DIM(160)
     HEAD_DIM(176) HEAD_DIM(192) HEAD_DIM(208) HEAD_DIM(224) HEAD_DIM(240)
@@ -224,8 +228,8 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int b,
 // q, k, v, o: contiguous fp32.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int hq,
-                                      int hkv, int s, int d, int causal,
-                                      int window, void* stream) {
-  return dispatch_d<float>(q, k, v, o, b, hq, hkv, s, d, causal, window,
+                                      int hkv, int s, int sk, int d,
+                                      int causal, int window, void* stream) {
+  return dispatch_d<float>(q, k, v, o, b, hq, hkv, s, sk, d, causal, window,
                            static_cast<cudaStream_t>(stream));
 }

@@ -5,12 +5,14 @@
 //   repro/kernels/flash_attention.py::flash_attention_pallas (body
 //   _attn_kernel) for bf16 tensors, and computes what repro/models/lm/
 //   layers.py::flash_attention_xla computes, on the same tensors:
-//   q (B, HQ, S, D), k and v (B, HKV, S, D), contiguous bf16; o (B, HQ, S,
-//   D) bf16.  GQA: query head h reads kv head h / (HQ / HKV); K and V are
+//   q (B, HQ, S, D), k and v (B, HKV, SK, D), contiguous bf16; o (B, HQ,
+//   S, D) bf16.  SK != S is cross-attention (keys of another sequence;
+//   the Pallas kernel asserts SK == S); the masks take absolute positions
+//   from 0 on both sides.  GQA: query head h reads kv head h / (HQ / HKV); K and V are
 //   never repeated.  Scale 1/sqrt(D) with the real D, causal and
 //   local-window band masks, masked scores set to NEG_INF = -1e30 (never
 //   -inf), the denominator clamped at 1e-30, fp32 statistics and
-//   accumulator.  Any S; D any multiple of 16 from 16 to 256.  fp32
+//   accumulator.  Any S and SK; D any multiple of 16 from 16 to 256.  fp32
 //   tensors take the FMA kernel of flash_attention.cu.
 //
 // What bounds it on the H100: the two products, 4 * B * HQ * D * S^2 / 2
@@ -54,7 +56,7 @@
 //   reduced once at the end.  Scores are taken in base 2 (ex2.approx of
 //   score * scale * log2 e), with the same m / l / alpha recurrence and
 //   ascending kv order as flash_attention.cu and the references.  Masks
-//   apply only on tiles that cross the diagonal, the window's edge or S.
+//   apply only on tiles that cross the diagonal, the window's edge or SK.
 //   Tiles wholly above the diagonal or left of the window (for the whole
 //   q tile) are never loaded, as the Pallas kernel skips them; a tile
 //   that the mask empties for one consumer's 64 rows is still computed
@@ -215,7 +217,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[NP][32],
 template <int BK>
 __device__ __forceinline__ void softmax_tile(
     float (&sc)[BK / 2], float& m0, float& m1, float& l0, float& l1,
-    float& al0, float& al1, bool masked, int k0, int qa, int cq, int s,
+    float& al0, float& al1, bool masked, int k0, int qa, int cq, int sk,
     int causal, int window, float scale_log2) {
   const bool fold = BK == 128 && !masked;
   float mx0 = NEG_INF, mx1 = NEG_INF;
@@ -228,7 +230,7 @@ __device__ __forceinline__ void softmax_tile(
         if (masked) {
           const int kp = k0 + 8 * j + cq + (e & 1);
           const int qp = e < 2 ? qa : qa + 8;
-          bool ok = kp < s;
+          bool ok = kp < sk;
           if (causal) ok = ok && qp >= kp;
           if (window > 0) ok = ok && qp - kp < window;
           x = ok ? x : NEG_INF;
@@ -314,8 +316,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 __nv_bfloat16* __restrict__ o, int hq, int hkv, int s, int d,
-                 int causal, int window, float scale_log2) {
+                 __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
+                 int sk, int d, int causal, int window, float scale_log2) {
   using C = Cfg<DP>;
   constexpr int BK = C::BK, NP = C::NP;
   extern __shared__ uint8_t smem_raw[];
@@ -332,8 +334,9 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   // kv tiles this q tile needs: up to its last row (causal), from the
-  // first key its first row's window reaches
-  const int k_end = causal ? min(s, q0 + BQ) : s;
+  // first key its first row's window reaches (the wrapper keeps at least
+  // one tile: a window comes with SK >= S)
+  const int k_end = causal ? min(sk, q0 + BQ) : sk;
   const int t_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
   const int n_tiles = (k_end + BK - 1) / BK - t_lo;
 
@@ -411,7 +414,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // whether tile k0's scores need the mask for this consumer's rows
     auto masked = [&](int k0) {
       return (causal && k0 + BK - 1 > r_lo) ||
-             (window > 0 && r_hi - k0 >= window) || k0 + BK > s;
+             (window > 0 && r_hi - k0 >= window) || k0 + BK > sk;
     };
 
     if (cw == 1) named_arrive(1);     // consumer 0 takes the first turn
@@ -428,7 +431,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(sc);
     mbar_arrive(k_empty);
     softmax_tile<BK>(sc, m0, m1, l0, l1, al0, al1, masked(t_lo * BK),
-                     t_lo * BK, qa, cq, s, causal, window, scale_log2);
+                     t_lo * BK, qa, cq, sk, causal, window, scale_log2);
     rescale_and_pack<NP, BK>(acc, pa, sc, al0, al1);
 
     for (int t = 1; t < n_tiles; ++t) {
@@ -446,7 +449,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);
       mbar_arrive(k_empty + 8 * st);
       softmax_tile<BK>(sc, m0, m1, l0, l1, al0, al1, masked(k0), k0, qa, cq,
-                       s, causal, window, scale_log2);
+                       sk, causal, window, scale_log2);
       wg_wait<0>();
 #pragma unroll
       for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
@@ -514,15 +517,15 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int bh, int s,
 
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int s, int d, int causal, int window,
+           int hq, int hkv, int s, int sk, int d, int causal, int window,
            cudaStream_t stream) {
   using C = Cfg<DP>;
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return 20000;
   CUtensorMap tq, tk, tv;
   int err = encode(fn, &tq, q, b * hq, s, d, BQ);
-  if (!err) err = encode(fn, &tk, k, b * hkv, s, d, C::BK);
-  if (!err) err = encode(fn, &tv, v, b * hkv, s, d, C::BK);
+  if (!err) err = encode(fn, &tk, k, b * hkv, sk, d, C::BK);
+  if (!err) err = encode(fn, &tv, v, b * hkv, sk, d, C::BK);
   if (err) return err;
   auto kern = attn_sm90_kernel<DP>;
   cudaError_t ce = cudaFuncSetAttribute(
@@ -530,7 +533,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (ce != cudaSuccess) return (int)ce;
   const dim3 grid(b * hq, (s + BQ - 1) / BQ);
   kern<<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq, hkv, s, d, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq, hkv, s, sk, d, causal,
       window, LOG2E / sqrtf((float)d));
   return (int)cudaGetLastError();
 }
@@ -541,16 +544,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 // [16, 256].  Returns 0 or an error code (see the header).
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const void* v, void* o, int b,
-                                           int hq, int hkv, int s, int d,
-                                           int causal, int window,
+                                           int hq, int hkv, int s, int sk,
+                                           int d, int causal, int window,
                                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d < 16 || d > 256 || d % 16) return (int)cudaErrorInvalidValue;
+  // every q tile needs a kv tile (n_tiles >= 1 in the kernel)
+  if (sk < 1 || (window > 0 && sk < s)) return (int)cudaErrorInvalidValue;
   switch ((d + PANEL - 1) / PANEL) {
-    case 1: return launch<64>(q, k, v, o, b, hq, hkv, s, d, causal, window, st);
-    case 2: return launch<128>(q, k, v, o, b, hq, hkv, s, d, causal, window, st);
-    case 3: return launch<192>(q, k, v, o, b, hq, hkv, s, d, causal, window, st);
-    default: return launch<256>(q, k, v, o, b, hq, hkv, s, d, causal, window, st);
+    case 1:
+      return launch<64>(q, k, v, o, b, hq, hkv, s, sk, d, causal, window, st);
+    case 2:
+      return launch<128>(q, k, v, o, b, hq, hkv, s, sk, d, causal, window, st);
+    case 3:
+      return launch<192>(q, k, v, o, b, hq, hkv, s, sk, d, causal, window, st);
+    default:
+      return launch<256>(q, k, v, o, b, hq, hkv, s, sk, d, causal, window, st);
   }
 }
 

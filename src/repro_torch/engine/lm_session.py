@@ -12,17 +12,23 @@ the tokens the returned array holds.
 
 PyTorch runs eagerly, so there are no per-bucket programs to compile:
 ``prewarm`` builds the kernels and runs one prefill per bucket and one
-decode step.  On a CUDA device every prefill attention (dense, moe) or
-SSD intra-chunk block (ssm) launches the hand-written kernel B3 or B4, and
-every MoE router (moe, at prefill and at each decode step) the blocked
-matmul B2.
+decode step.  On a CUDA device every prefill attention (dense, moe, vlm,
+hybrid's banded layers, encdec's encoder, decoder and cross-attention) or
+SSD intra-chunk block (ssm) launches the hand-written kernel B3 or B4,
+every cross-attention of an encdec decode step B3, and every MoE router
+(moe, at prefill and at each decode step) the blocked matmul B2.  As in
+the reference, a session feeds tokens only: a vlm's image embeddings and
+an encdec's frames go through the model's ``prefill`` and
+``decode_step``, and an encdec session's ``prewarm`` and ``generate``
+raise for the frames they lack.
 
 ``save`` writes the reference's version-5 LM artifact: a manifest whose
 ``"lm"`` section holds the config, ``max_len``, ``batch``, the bucket set
 and the prompt-traffic histogram, and the weights as step 0 of a
 ``CheckpointStore``, every file checksummed, swapped in atomically.
-``load`` verifies the checksums and rebuilds the nested-dict tree from the
-leaves' dotted paths, bf16 leaves bit for bit — an artifact of either
+``load`` verifies the checksums and rebuilds the tree (dicts, and the
+hybrid and encdec families' lists of layers) from the leaves' paths, bf16
+leaves bit for bit — an artifact of either
 package, so also a bf16 one the reference writes but cannot read back
 (ROADMAP C5).  It never draws a template tree: arctic-480b's alone would
 be 55 GB.  Nothing is searched.
@@ -40,8 +46,8 @@ from repro_torch.checkpoint.store import CheckpointStore, unflatten_dicts
 from repro_torch.engine.telemetry import SizeHistogram
 from repro_torch.engine.traffic import _coerce_counts, solve_seq_buckets
 from repro_torch.models.lm.config import LMConfig
-from repro_torch.models.lm.model import (check_family, decode_step,
-                                         init_cache, init_params, prefill)
+from repro_torch.models.lm.model import (decode_step, init_cache,
+                                         init_params, prefill)
 
 __all__ = ["LMSession", "compile_lm"]
 
@@ -68,7 +74,6 @@ class LMSession:
         if any(b < 1 or b > max_len for b in buckets):
             raise ValueError(f"seq_buckets must lie in [1, max_len="
                              f"{max_len}], got {seq_buckets}")
-        check_family(cfg)
         self.cfg = cfg
         self.max_len = int(max_len)
         self.batch = int(batch)
@@ -102,14 +107,15 @@ class LMSession:
     def prewarm(self) -> None:
         """Build the kernels and run one prefill per bucket and one decode
         step up front, so that no request pays the first build."""
+        cfg = self.cfg
         dummy = torch.zeros((self.batch, 1), dtype=torch.long,
                             device=self.device)
-        cache = init_cache(self.cfg, self.batch, self.max_len, self.device)
-        decode_step(self._params, self.cfg, dummy, cache, 0)
+        cache = init_cache(cfg, self.batch, self.max_len, self.device)
+        decode_step(self._params, cfg, dummy, cache, 0)
         for b in self.seq_buckets:
             toks = torch.zeros((self.batch, b), dtype=torch.long,
                                device=self.device)
-            prefill(self._params, self.cfg, toks, max_len=self.max_len)
+            prefill(self._params, cfg, toks, max_len=self.max_len)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -248,8 +254,8 @@ def compile_lm(model: Union[LMConfig, str], *,
     """Build an :class:`LMSession` — the LM arm of ``engine.compile``.
 
     model        an ``LMConfig`` (e.g. ``reduced(ARCHS["qwen2-1.5b"])``)
-                 or an assigned-architecture name; the port runs the
-                 ``dense``, ``moe`` and ``ssm`` families
+                 or an assigned-architecture name, of any of the six
+                 families
     seq_buckets  explicit prefill bucket lengths; ``"auto"`` solves them
                  from ``prompt_hist`` (a ``{len: count}`` mapping or
                  ``SizeHistogram``) via the reflected exact DP; default

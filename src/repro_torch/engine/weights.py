@@ -20,21 +20,19 @@ def params_from_numpy(params: Mapping[str, Mapping[str, Any]],
             for node, leaves in params.items()}
 
 
-def lm_params_from_numpy(tree: Mapping[str, Any], device="cuda") -> dict:
+def lm_params_from_numpy(tree: Any, device="cuda") -> Any:
     """The reference's LM parameter pytree (nested dicts whose layer leaves
-    are stacked on a leading layer axis; arrays numpy can read, such as
+    are stacked on a leading layer axis, or lists of per-layer dicts for
+    the hybrid and encdec families; arrays numpy can read, such as
     ``repro.models.lm.init_params`` output) as the port's tensors on
     ``device``, in the same tree, values and types unchanged.  numpy has
     no bfloat16, so a bf16 leaf travels as float32 and is cast back."""
-    out = {}
-    for key, leaf in tree.items():
-        if isinstance(leaf, Mapping):
-            out[key] = lm_params_from_numpy(leaf, device)
-            continue
-        dtype = str(getattr(leaf, "dtype", ""))
-        if dtype == "bfloat16":
-            t = torch.tensor(np.asarray(leaf, np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.tensor(np.array(leaf))
-        out[key] = t.to(device)
-    return out
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_from_numpy(v, device) for v in tree]
+    if str(getattr(tree, "dtype", "")) == "bfloat16":
+        t = torch.tensor(np.asarray(tree, np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.tensor(np.array(tree))
+    return t.to(device)

@@ -4,11 +4,16 @@ kernels, their wrapper, and the plain PyTorch version.
 The kernels replace the JAX reference's Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_pallas`` and compute
 what the reference's ``models/lm/layers.py::flash_attention_xla``
-computes: q ``(B, Hq, S, D)``, k and v ``(B, Hkv, S, D)``, GQA through the
-kv-head index ``h // (Hq / Hkv)``, scale ``1/sqrt(D)``, causal and
-local-window masks, NEG_INF = -1e30, the denominator clamped at 1e-30,
-fp32 inside and the output in q's type.  They take any S.  The route is
-chosen by dtype before any launch (``_route``):
+computes: q ``(B, Hq, S, D)``, k and v ``(B, Hkv, Sk, D)``, GQA through
+the kv-head index ``h // (Hq / Hkv)``, scale ``1/sqrt(D)``, causal and
+local-window masks on absolute positions from 0 (key j is seen by query i
+where ``j < Sk``, ``i >= j`` if causal and ``i - j < window`` if
+windowed), NEG_INF = -1e30, the denominator clamped at 1e-30, fp32 inside
+and the output in q's type.  They take any S and any Sk >= 1: Sk != S is
+cross-attention (whisper's decoder against its encoder), which the
+reference computes with ``flash_attention_xla`` (its Pallas kernel asserts
+Sk == S).  A window needs Sk >= S, so that every query row sees a key.
+The route is chosen by dtype before any launch (``_route``):
 
 * ``sm90`` (bf16, the serving path): ``csrc/flash_attention_sm90.cu``,
   wgmma on the tensor cores fed by TMA, any D that is a multiple of 16
@@ -109,15 +114,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :, :s]
 
 
-# the route's source and C entry; both take (q, k, v, o, b, hq, hkv, s, d,
-# causal, window, stream)
+# the route's source and C entry; both take (q, k, v, o, b, hq, hkv, s, sk,
+# d, causal, window, stream)
 _SOURCES = {"sm90": ("flash_attention_sm90", "flash_attention_sm90_launch"),
             "fma": ("flash_attention", "flash_attention_launch")}
 
 
 def _launch_fn(route: str):
     return _build.entry(*_SOURCES[route], [ctypes.c_void_p] * 4
-                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 
 
 def sm90_smem_bytes(d: int) -> int:
@@ -132,7 +137,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_chunk: int = 1024, kv_chunk: int = 1024
                     ) -> torch.Tensor:
-    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D); Hq % Hkv == 0.  The
+    """q: (B, Hq, S, D); k, v: (B, Hkv, Sk, D); Hq % Hkv == 0.  The
     signature of the reference's ``flash_attention_xla``: ``q_chunk`` and
     ``kv_chunk`` are the plain version's chunks and the kernel's tiles are
     its own."""
@@ -142,14 +147,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"expected q (B, Hq, S, D), k and v (B, Hkv, S, D); "
+        raise ValueError(f"expected q (B, Hq, S, D), k and v (B, Hkv, Sk, D); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    if tuple(k.shape) != (b, hkv, s, d) or tuple(v.shape) != tuple(k.shape):
+    hkv, sk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, hkv, sk, d) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
-                         f"({b}, Hkv, {s}, {d})")
+                         f"({b}, Hkv, Sk, {d})")
+    if sk < 1:
+        raise ValueError("k and v hold no position (Sk = 0)")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
     if q.dtype not in _ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -165,14 +172,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"{name} must be 16-byte aligned")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if window > 0 and sk < s:
+        raise ValueError(f"a window needs Sk >= S; got Sk={sk}, S={s}")
     out = torch.empty_like(q)
     if s == 0 or b == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launch_fn(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                out.data_ptr(), b, hq, hkv, s, d, int(causal),
-                                int(window), stream)
+                                out.data_ptr(), b, hq, hkv, s, sk, d,
+                                int(causal), int(window), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention ({route}) launch failed: "
                            f"error {err} (a cudaError_t; 10000 + a CUresult "

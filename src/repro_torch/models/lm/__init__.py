@@ -1,5 +1,5 @@
-"""LM stack: the ``dense``, ``moe`` and ``ssm`` families of the reference's
-``repro/models/lm`` (the others wait for ROADMAP A8)."""
+"""LM stack: the six families (dense, moe, ssm, hybrid, encdec, vlm) of
+the reference's ``repro/models/lm``."""
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.model import (decode_step, forward, init_cache,
                                          init_params, prefill)

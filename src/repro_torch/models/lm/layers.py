@@ -5,16 +5,19 @@ Prefill attention is ``flash_attention`` (the signature of the reference's
 ``flash_attention_xla``): on a CUDA tensor it launches the hand-written
 kernel B3, on a CPU tensor its plain version, which is the reference's
 online-softmax loop.  Decode attention stays plain torch, as the reference
-has no kernel for it.
+has no kernel for it; a window's ring (the hybrid family) is read
+through the same function.
 
 MoE is the reference's capacity-dropping formulation: the router's
 ``softmax(x @ router)`` is ``dense_softmax``, which on a CUDA tensor
 launches the hand-written blocked matmul B2 with the softmax fused into its
 tail; tokens are ranked within their chosen expert by a stable sort,
 scattered into an (E, capacity, d) buffer, run through batched expert
-products and combined with their top-k gates.  Cross-attention waits for
-its family (ROADMAP A8); on one card the reference's ``shard_hint`` calls
-are the identity and are dropped (ROADMAP A10).
+products and combined with their top-k gates.  Cross-attention (whisper's
+decoder) is ``flash_attention`` too, its keys the encoder's S_enc
+positions against S queries, S_enc != S: B3 takes a kv length of its own.
+On one card the reference's ``shard_hint`` calls are the identity and are
+dropped (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -115,12 +118,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def attention(x: torch.Tensor, p: Dict, cfg: LMConfig, *,
               positions: torch.Tensor, causal: bool = True, window: int = 0,
-              kv_cache: Optional[Tuple] = None, cache_len=None):
+              kv_cache: Optional[Tuple] = None, cache_len=None,
+              cross_kv: Optional[Tuple] = None, use_rope: bool = True):
     """x: (B, S, d).  Modes:
     * prefill: kv_cache None -> flash attention over x itself; returns
       (out, (k, v)) so prefill can seed a cache;
     * decode: kv_cache=(k, v) pre-updated with this token -> cache
-      attention."""
+      attention;
+    * cross: cross_kv=(k, v) (B, Hkv, S_enc, hd) from the encoder
+      (whisper) -> flash attention of the S queries against the S_enc
+      keys, no mask and no RoPE; returns (out, None).
+    ``use_rope=False`` leaves q and k unrotated (whisper's encoder)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
 
@@ -130,9 +138,18 @@ def attention(x: torch.Tensor, p: Dict, cfg: LMConfig, *,
             y = y + p[f"b{name}"]
         return y.reshape(b, s, heads, hd)
 
-    q = rope(proj("q", h), positions, cfg.rope_theta)
-    key = rope(proj("k", kv), positions, cfg.rope_theta)
+    q = proj("q", h)
+    if cross_kv is not None:
+        ck, cv = cross_kv
+        # the reference's flash_attention_xla with its default chunks
+        out = flash_attention(q.transpose(1, 2).contiguous(),
+                              ck.contiguous(), cv.contiguous(), causal=False)
+        return out.transpose(1, 2).reshape(b, s, h * hd) @ p["wo"], None
+    key = proj("k", kv)
     val = proj("v", kv)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        key = rope(key, positions, cfg.rope_theta)
 
     qt = q.transpose(1, 2)                             # (B, H, S, hd)
     if kv_cache is not None:

@@ -142,8 +142,14 @@ def test_unflatten_dicts_inverts_the_dotted_paths():
     flat = dict(_leaves(tree))
     assert unflatten_dicts(flat).keys() == tree.keys()
     assert unflatten_dicts(flat)["layers"]["y"] is tree["layers"]["y"]
-    with pytest.raises(ValueError, match="list index"):
-        unflatten_dicts({"a[0]": 1})
+    # lists of dicts (the hybrid and encdec layer lists) come back as lists
+    nested = {"a[1].w": 2, "a[0].w": 1, "a[0].b": 0, "m[0]": 3, "x": 4}
+    assert unflatten_dicts(nested) == {"a": [{"w": 1, "b": 0}, {"w": 2}],
+                                       "m": [3], "x": 4}
+    with pytest.raises(ValueError, match="0..n-1"):
+        unflatten_dicts({"a[1]": 1})
+    with pytest.raises(ValueError, match="not a tree path"):
+        unflatten_dicts({"a]0[": 1})
 
 
 def _leaves(tree, prefix=""):

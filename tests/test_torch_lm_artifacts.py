@@ -4,8 +4,9 @@ itself and against the reference, on the CPU.
 Reduced qwen2-1.5b, mamba2-130m and arctic-480b, in fp32 and bf16, give
 the same tokens after a reload with every leaf bit for bit (a bf16 leaf
 through its raw 2-byte values, never float32).  An fp32 LM artifact
-crosses both ways: the loading package's tokens equal those of its own
-session on the saving package's weights (carried over by
+crosses both ways (and a hybrid one, whose layers are a list): the
+loading package's tokens equal those of its own session on the saving
+package's weights (carried over by
 ``lm_params_from_numpy`` or ``jnp.asarray``), and its leaves are the
 saver's bit for bit.  The port loads a bf16 artifact that the reference
 saved but cannot load itself (ROADMAP C5).  CNN and LM artifacts refuse
@@ -35,10 +36,16 @@ NAMES = ("qwen2-1.5b", "mamba2-130m", "arctic-480b")
 
 
 def _leaves(tree, prefix=""):
+    """(path, leaf) of a tree of dicts and lists, in the store's path
+    spelling (``layers_list[0].attn.wq``)."""
+    if isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}[{i}]")
+        return
     for k in sorted(tree):
         v = tree[k]
         path = f"{prefix}.{k}" if prefix else k
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v, path)
         else:
             yield path, v
@@ -140,8 +147,62 @@ def test_port_fp32_artifact_loads_in_the_reference(tmp_path, name):
 
 
 def _nested_np(tree):
-    return {k: _nested_np(v) if isinstance(v, dict) else
+    if isinstance(tree, list):
+        return [_nested_np(v) for v in tree]
+    return {k: _nested_np(v) if isinstance(v, (dict, list)) else
             jnp.asarray(v.numpy()) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "whisper-tiny"])
+def test_list_shaped_trees_round_trip(tmp_path, name):
+    """The hybrid and encdec trees hold lists of layers: the store writes
+    their ``[i]`` paths and the load rebuilds the lists, every leaf bit for
+    bit; the hybrid session generates as before."""
+    cfg = reduced(ARCHS[name])
+    sess = compile_lm(cfg, max_len=24, device="cpu")
+    sess.save(tmp_path / "lm")
+    loaded = LMSession.load(tmp_path / "lm", device="cpu")
+    assert loaded.cfg == cfg
+    key = "layers_list" if cfg.family == "hybrid" else "dec_layers"
+    assert isinstance(loaded._params[key], list)
+    want = dict(_leaves(sess._params))
+    got = dict(_leaves(loaded._params))
+    assert got.keys() == want.keys() and any("[1]" in p for p in got)
+    for path, t in want.items():
+        assert _bits(got[path]) == _bits(t), path
+    if cfg.family == "hybrid":
+        toks = _toks(cfg, (1, 14))
+        np.testing.assert_array_equal(loaded.generate(toks, 4),
+                                      sess.generate(toks, 4))
+
+
+def test_hybrid_artifact_crosses_both_ways(tmp_path):
+    """An fp32 hybrid artifact (lists of layers) saved by either package
+    loads in the other: every leaf bit for bit, and the loader's tokens
+    equal those of its own session on the saver's weights."""
+    name = "recurrentgemma-2b"
+    ref = r_compile_lm(r_reduced(R_ARCHS[name]), max_len=24, seed=0)
+    ref.save(tmp_path / "ref")
+    port = LMSession.load(tmp_path / "ref", device="cpu")
+    got = dict(_leaves(port._params))
+    for path, leaf in _leaves(ref._params):
+        assert _bits(got[path]) == _bits(leaf), path
+    same = compile_lm(reduced(ARCHS[name]), max_len=24, device="cpu",
+                      params=lm_params_from_numpy(ref._params, "cpu"))
+    toks = _toks(port.cfg, (1, 14))
+    np.testing.assert_array_equal(port.generate(toks, 4),
+                                  same.generate(toks, 4))
+
+    mine = compile_lm(reduced(ARCHS[name]), max_len=24, seed=3, device="cpu")
+    mine.save(tmp_path / "port")
+    back = RLMSession.load(tmp_path / "port")
+    theirs = dict(_leaves(back._params))
+    for path, leaf in _leaves(mine._params):
+        assert _bits(theirs[path]) == _bits(leaf), path
+    same = r_compile_lm(r_reduced(R_ARCHS[name]), max_len=24,
+                        params=_nested_np(mine._params))
+    np.testing.assert_array_equal(back.generate(jnp.asarray(toks), 4),
+                                  same.generate(jnp.asarray(toks), 4))
 
 
 def _ref_bf16(tmp_path):

@@ -1,7 +1,8 @@
-"""The LM kernels on the card: B3 (both routes) and B4 against their plain
-versions (B4 bit-identical over two launches), the wrappers' refusals, and
-their launches through ``prefill`` (B4 24 times in mamba2-130m's at full
-depth).  An LM artifact saved on the card (fp32 and bf16) loads on the
+"""The LM kernels on the card: B3 (both routes, also with keys of a length
+of their own) and B4 against their plain versions (B4 bit-identical over
+two launches), the wrappers' refusals, and their launches through
+``prefill`` (B4 24 times in mamba2-130m's at full depth; B3 in the reduced
+hybrid, vlm and encdec families, and in encdec's decode steps).  An LM artifact saved on the card (fp32 and bf16) loads on the
 card with every leaf bit for bit and the same tokens, and on the CPU with
 every leaf bit for bit.
 
@@ -88,6 +89,29 @@ def test_flash_kernel_matches_plain(card, dtype, b, hq, hkv, s, d, causal,
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+# (B, Hq, Hkv, S, Sk, D, causal): keys of their own length (whisper's
+# cross-attention: a decode step, a prompt, a tile and a half of queries
+# against 1,500 encoder positions), fewer keys than queries, causal ones
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,sk,d,causal", [
+    (1, 6, 6, 1, 1500, 64, False), (4, 6, 6, 4, 1500, 64, False),
+    (1, 6, 6, 200, 1500, 64, False), (2, 4, 2, 300, 77, 128, False),
+    (1, 4, 1, 150, 90, 256, True), (1, 4, 2, 70, 500, 64, True)])
+def test_flash_kernel_with_a_kv_length_of_its_own(card, dtype, b, hq, hkv, s,
+                                                  sk, d, causal):
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g).to(device=card, dtype=dtype)
+               for shape in ((b, hq, s, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    by_route = dict(fa.flash_attention.launches_by_route)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    by_route[ROUTE[dtype]] += 1
+    assert fa.flash_attention.launches_by_route == by_route
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
 def test_flash_wrapper_rejects_what_the_kernel_cannot_take(card):
     q, k, v = _qkv(1, 4, 2, 16, 64, torch.float32, card)
     strided = q.transpose(2, 3).contiguous().transpose(2, 3)
@@ -111,6 +135,14 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take(card):
         fa.flash_attention(q[:, :3].contiguous(), k, v)
     with pytest.raises(ValueError, match="is on"):
         fa.flash_attention(q, k.cpu(), v)
+    # a window needs every query row to reach a key; no keys at all
+    with pytest.raises(ValueError, match="Sk >= S"):
+        fa.flash_attention(q, k[:, :, :8].contiguous(),
+                           v[:, :, :8].contiguous(), window=4)
+    with pytest.raises(ValueError, match="Sk = 0"):
+        fa.flash_attention(q, k[:, :, :0], v[:, :, :0])
+    with pytest.raises(ValueError, match="must be"):
+        fa.flash_attention(q, k, v[:, :, :8].contiguous())
 
 
 # (BC, H, Q, N, P, decay): mamba2-130m's 512-token shape, its 2,048-token
@@ -193,6 +225,46 @@ def test_prefill_launches_once_per_layer_and_matches_cpu(card, name):
     out = sess.generate(toks[:1, :13].numpy(), 4)    # bucket 8 + catch-up
     assert fn.launches - before == cfg.n_layers
     assert out.shape == (1, 4) and 0 <= out.min() and out.max() < cfg.vocab
+
+
+# B3 a prefill and a decode step of the reduced A8 families: hybrid's
+# attention layers (1 of 3), vlm's layers, encdec's encoder, decoder and
+# cross-attention (and the cross-attention of each decode step)
+A8_LAUNCHES = {"recurrentgemma-2b": (1, 0), "llava-next-mistral-7b": (2, 0),
+               "whisper-tiny": (6, 2)}
+
+
+@pytest.mark.parametrize("name", sorted(A8_LAUNCHES))
+def test_a8_family_launches_b3_and_matches_cpu(card, name):
+    cfg = reduced(ARCHS[name])
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 12)))
+    extra, pos = {}, 12
+    if cfg.family == "vlm":
+        extra["img_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_img_tokens, cfg.d_model), dtype=np.float32))
+        pos += cfg.n_img_tokens
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_positions, cfg.d_model), dtype=np.float32))
+    per_prefill, per_step = A8_LAUNCHES[name]
+    dev = TM.params_to(params, card)
+    before = fa.flash_attention.launches
+    cache, logits = TM.prefill(dev, cfg, toks.to(card), max_len=32,
+                               **{k: v.to(card) for k, v in extra.items()})
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == per_prefill
+    want_cache, want = TM.prefill(params, cfg, toks, max_len=32, **extra)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    # past the reduced hybrid's window of 8: the ring has wrapped
+    nxt = toks[:, -1:]
+    for p in range(pos, pos + 3):
+        before = fa.flash_attention.launches
+        logits, cache = TM.decode_step(dev, cfg, nxt.to(card), cache, p)
+        assert fa.flash_attention.launches - before == per_step
+        want, want_cache = TM.decode_step(params, cfg, nxt, want_cache, p)
+        torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

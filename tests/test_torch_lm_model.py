@@ -21,7 +21,7 @@ from repro.configs import ARCHS as R_ARCHS
 from repro.configs import reduced as r_reduced
 from repro.models.lm import model as RM
 from repro_torch.configs import ARCHS, reduced
-from repro_torch.engine import lm_params_from_numpy
+from repro_torch.engine import compile, lm_params_from_numpy
 from repro_torch.models.lm import model as TM
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -136,12 +136,56 @@ def test_bf16_dense_prefill_keeps_cast_points():
 
 @pytest.mark.parametrize("name", ["recurrentgemma-2b", "whisper-tiny",
                                   "llava-next-mistral-7b"])
-def test_other_families_wait_for_a8(name):
+def test_other_families_initialise_cache_and_compile(name):
+    """The hybrid, encdec and vlm families at reduced size: the
+    reference's parameter tree (lists of layers for hybrid and encdec),
+    its cache's shapes, and a session that compiles and prewarms (an
+    encdec's prewarm raises for its missing frames, as its generate
+    does)."""
     cfg = reduced(ARCHS[name])
-    with pytest.raises(NotImplementedError, match="A8"):
-        TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        TM.init_cache(cfg, 1, 8, "cpu")
+    r_cfg = r_reduced(R_ARCHS[name])
+    params = TM.init_params(cfg, device="cpu")
+    r_p = RM.init_params(r_cfg, jax.random.PRNGKey(0))
+    assert _structure(params) == jax.tree_util.tree_map(
+        lambda a: a.shape, r_p)
+    cache = TM.init_cache(cfg, 2, 12, "cpu")
+    assert _structure(cache) == jax.tree_util.tree_map(
+        lambda a: a.shape, RM.init_cache(r_cfg, 2, 12))
+    sess = compile(cfg, (1, 12), params=params, device="cpu")
+    assert sess.cfg.family == cfg.family and sess.seq_buckets == [3, 6, 12]
+    if cfg.family == "encdec":
+        with pytest.raises(ValueError, match="frames"):
+            sess.prewarm()
+    else:
+        sess.prewarm()
+
+
+def _structure(tree):
+    """The tree of dicts and lists with each tensor's shape."""
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_structure(v) for v in tree]
+    return tuple(tree.shape)
+
+
+SHIMS = ("arctic_480b", "kimi_k2_1t_a32b", "llava_next_mistral_7b",
+         "mamba2_130m", "qwen2_1_5b", "recurrentgemma_2b", "stablelm_3b",
+         "starcoder2_3b", "whisper_tiny", "yi_9b")
+
+
+@pytest.mark.parametrize("shim", SHIMS)
+def test_config_shims_are_the_references(shim):
+    """Each of the port's ``configs/<arch>.py`` shims holds the
+    reference's ``CONFIG`` and ``REDUCED``."""
+    import importlib
+
+    ours = importlib.import_module(f"repro_torch.configs.{shim}")
+    ref = importlib.import_module(f"repro.configs.{shim}")
+    assert dataclasses.asdict(ours.CONFIG) == dataclasses.asdict(ref.CONFIG)
+    assert dataclasses.asdict(ours.REDUCED) == \
+        dataclasses.asdict(ref.REDUCED)
+    assert ours.CONFIG is ARCHS[ours.CONFIG.name]
 
 
 def test_configs_are_the_reference_table():

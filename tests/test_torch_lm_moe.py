@@ -326,15 +326,18 @@ def test_generate_matches_reference(name, prompt_len, batch):
 
 
 def test_compile_serves_the_moe_family():
-    """The front door takes a moe config and an arch name; the port's
-    family gate names the families still missing."""
+    """The front door takes a moe config and an arch name, and since the
+    A8 families were ported, a hybrid one too: it initialises, caches and
+    generates at reduced size."""
     cfg = reduced(ARCHS["arctic-480b"])
     sess = compile(cfg, (1, 16), device="cpu")
     assert sess.cfg.family == "moe"
     out = sess.generate(_toks(cfg, (1, 10)), 3)
     assert out.shape == (1, 3)
-    with pytest.raises(NotImplementedError, match="hybrid, encdec, vlm"):
-        compile("recurrentgemma-2b", (1, 8), device="cpu")
+    hybrid = reduced(ARCHS["recurrentgemma-2b"])
+    out = compile(hybrid, (1, 16), device="cpu").generate(
+        _toks(hybrid, (1, 10)), 3)
+    assert out.shape == (1, 3) and 0 <= out.min() and out.max() < 512
 
 
 def test_compile_serves_kimi_k2():

@@ -204,8 +204,11 @@ def test_compile_lm_rejects_bad_spec():
         compile_lm(cfg, max_len=8, seq_buckets="auto", device="cpu")
     with pytest.raises(ValueError, match="only meaningful"):
         compile_lm(cfg, max_len=8, prompt_hist={4: 1}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        compile("recurrentgemma-2b", (1, 8), device="cpu")
+    # an encdec session compiles, and its prefill asks for the frames that
+    # a token-only session cannot feed (as in the reference)
+    whisper = compile(reduced(ARCHS["whisper-tiny"]), (1, 8), device="cpu")
+    with pytest.raises(ValueError, match="frames"):
+        whisper.generate(np.zeros((1, 8), np.int64), 1)
 
 
 def test_bucket_for_and_validation():
@@ -308,16 +311,71 @@ def test_chip_smoke_lm_phases_run_on_cpu(name):
     assert par["bucket"] == 16
 
 
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "whisper-tiny",
+                                  "llava-next-mistral-7b"])
+def test_chip_smoke_a8_phases_run_on_cpu(name):
+    """The A8 families' phases at reduced size: the hybrid through the
+    session (a bucket past its window of 8), vlm and encdec through the
+    model with their stub frontends' inputs; no launches on the CPU, and
+    parity of the CPU against itself is exact."""
+    smoke = _smoke()
+    cfg = reduced(ARCHS[name])
+    if cfg.family == "hybrid":
+        assert smoke.lm_kernels_of(ARCHS[name]) == {"flash_attention": (8, 0)}
+        out = smoke.phase_lm_main("cpu", cfg, max_len=32,
+                                  requests=((20, 3), (32, 1)), big=None)
+        assert out["prefills"] == 2 and out["launches"] == 0
+        assert out["window"] == 8 and out["buckets"] == [[8, 16, 32]]
+    else:
+        out = smoke.phase_lm_frontend("cpu", cfg, 32, 5, 3, (1, 2))
+        assert out["launches"] == 0 and len(out["runs"]) == 2
+        assert out["runs"][0]["prefill_tokens"] == 5 + (
+            cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    par = smoke.phase_lm_parity("cpu", cfg, n_layers=cfg.n_layers,
+                                max_len=32, prompt=19, new=3)
+    assert par["max_logit_err_rel"] == 0.0 and par["tokens_compared"] == 3
+    assert smoke.lm_kernels_of(ARCHS["whisper-tiny"]) == {
+        "flash_attention": (12, 4)}
+    assert smoke.lm_kernels_of(ARCHS["llava-next-mistral-7b"]) == {
+        "flash_attention": (32, 0)}
+
+
+def test_chip_smoke_attn_bound_counts_the_masked_pairs():
+    """B3's bound counts the pairs its masks keep: the causal half, the
+    band of a window, every pair of a non-causal or cross-attention."""
+    smoke = _smoke()
+    assert smoke.attn_pairs(6, 6) == 21
+    assert smoke.attn_pairs(6, 6, window=2) == 11
+    assert smoke.attn_pairs(4608, 4608, True, 2048) == \
+        2048 * 2049 // 2 + (4608 - 2048) * 2048
+    assert smoke.attn_pairs(4, 1500, causal=False) == 6000
+    b = smoke.attn_bound(1, 6, 6, 1, 64, torch.bfloat16, False, 0, 1500)
+    assert b["bytes"] == 2 * (2 * 6 * 64 + 2 * 6 * 1500 * 64)
+    assert b["bound_by"] == "bytes"
+
+
 def test_chip_smoke_attn_cases_take_their_route():
     """Every B3 case that chip_smoke.py checks on the card is one that the
     route of its dtype takes (bf16: sm90, fp32: fma), and the cases cover
-    the sm90 route's new head dims (80, kimi-k2's 112) and a ragged S."""
+    the sm90 route's new head dims (80, kimi-k2's 112), a ragged S and
+    every bf16 shape that the A8 families' main paths give B3."""
     from repro_torch.kernels.flash_attention import _route
 
     smoke = _smoke()
     cases = smoke.attn_cases()
-    for name, b, hq, hkv, s, d, causal, window, dt in cases:
+    for name, b, hq, hkv, s, d, causal, window, dt, sk in cases:
         assert _route(dt, d) == smoke.B3_ROUTE[dt], name
-    bf16 = [c for c in cases if c[-1] == torch.bfloat16]
+    bf16 = [c for c in cases if c[8] == torch.bfloat16]
     assert {c[5] for c in bf16} >= {80, 112, 128, 256}
     assert any(c[4] % 128 for c in bf16)
+    # (B, Hq, Hkv, S, D, causal, window, Sk): recurrentgemma-2b's buckets,
+    # llava's image and text tokens, whisper-tiny's encoder, decoder and
+    # cross-attention at a prompt and a decode step, at batch 1 and 4
+    a8 = {(1, 10, 1, s, 256, True, 2048, s) for s in (1152, 2304, 4608)}
+    a8.add((1, 32, 8, 3392, 128, True, 0, 3392))
+    for b in (1, 4):
+        a8 |= {(b, 6, 6, 1500, 64, False, 0, 1500),
+               (b, 6, 6, 4, 64, True, 0, 4),
+               (b, 6, 6, 4, 64, False, 0, 1500),
+               (b, 6, 6, 1, 64, False, 0, 1500)}
+    assert a8 <= {c[1:8] + c[9:] for c in bf16}
