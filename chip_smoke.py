@@ -173,6 +173,30 @@ Phases, each a function of a device and a size:
                 its bucket, streamed tokens equal ``generate``'s, B1
                 launch 53 times a served batch (sm90) and B4 24 times a
                 streamed prefill; nothing may fail outside the chaos step.
+   launch     — A9 on the card (``phase_launch``), while phase 10's
+                artifacts still exist: the serving command line
+                (``repro_torch.launch.serve.main``) in this process over
+                the ResNet-50 artifact (64 requests at ``--max-batch 8``:
+                a uniform stream, a bursty trace with ``--health`` and
+                live stats, ``--buckets auto`` on a copy whose re-saved
+                artifact must load and predict), the int8 artifact
+                (``--dtype int8`` launches no B1, ``--dtype fp32`` is
+                refused) and the mamba2-130m artifact (3 streamed
+                requests); ``--arch`` for each of the ten architectures at
+                the reference's reduced size against a CPU run of the same
+                parameters; ``python -m repro_torch.launch.serve`` as a
+                fresh process; one ``"phase": "roofline"`` line each for
+                qwen2-1.5b and mamba2-130m (``analysis.flops.count_costs``
+                of a full-width 2,048-token prefill and decode steps at
+                batch 1 and 4 on the meta device, ``model_flops``,
+                ``model_bytes``, ``ideal_step_s`` over phase 8's device
+                time of the step).  Every served output must be
+                bit-identical to ``padded_predict`` at one of the buckets,
+                B1 launch 53 times a served batch (sm90), B4 24 times a
+                streamed prefill, the first stream's tokens equal
+                ``generate``'s, nothing searched, and each ``--arch`` run's
+                kernels launch as its family predicts (B3 on its fp32
+                route, B2 in the moe configs, B4 in mamba2).
                 The earlier models' sessions are released before
                 arctic-480b's phases, and each phase prints the card's
                 peak allocated memory and the script's elapsed seconds.
@@ -210,7 +234,12 @@ runs the tuning phase alone,
 
     python3 chip_smoke.py --a8-only
 
-B3 at the A8 families' shapes and phase 12 alone, and
+B3 at the A8 families' shapes and phase 12 alone,
+
+    python3 chip_smoke.py --launch-only
+
+the launch phase alone, on artifacts it saves itself (its roofline lines
+then have no device time), and
 
     python3 chip_smoke.py --serving-only
 
@@ -236,10 +265,14 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import hashlib
+import io
 import json
+import os
 import re
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -259,11 +292,7 @@ KERNEL_SOURCE = "src/repro_torch/csrc/conv2d_nchwc_sm90.cu"
 KERNEL_NAMES = ("conv2d_nchwc_sm90", "matmul_blocked", "matmul_splitk",
                 "matmul_blocked_sm90", "flash_attention_sm90",
                 "flash_attention", "ssd_chunk_sm90")
-PEAK_FP32 = 67e12          # H100 SXM fp32 FLOP/s outside the tensor cores
-PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
-PEAK_TF32 = 495e12         # H100 SXM dense TF32 tensor-core FLOP/s
 TF32_PRODUCTS = 3          # B1's and B4's 3xTF32: lo*hi + hi*lo + hi*hi
-MEM_BW = 3.35e12           # H100 SXM device-memory bytes/s
 # kernel vs plain on one card: fp32 sums of up to 18,432 terms (SSD's 3x3
 # heads on the 2,048-channel map) in another order, on outputs of order 1
 # (B1's 3xTF32 products carry ~2^-22 of each product besides)
@@ -278,6 +307,17 @@ LOGIT_TOL = 1e-5
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@functools.cache
+def h100() -> dict:
+    """The H100 SXM's peaks (``PEAK_FLOPS`` bf16, ``PEAK_TF32``,
+    ``PEAK_FP32`` outside the tensor cores) and memory rate (``HBM_BW``),
+    as the port states them once, in
+    ``src/repro_torch/analysis/roofline.py``.  The file is run by path,
+    not imported, so that ``--b3-times`` may still put another checkout's
+    package first on the path."""
+    return runpy.run_path(str(ROOT / "src/repro_torch/analysis/roofline.py"))
 
 
 # ---------------------------------------------------------------------------
@@ -779,8 +819,9 @@ def roofline(case, out: torch.Tensor, wl) -> dict:
     nbytes = 4 * (out.numel() + sum(
         case[k].numel() for k in ("x", "w", "scale", "shift", "residual",
                                   "out_buf") if case[k] is not None))
-    t_op = TF32_PRODUCTS * flop / PEAK_TF32 * 1e3
-    t_fma, t_mem = flop / PEAK_FP32 * 1e3, nbytes / MEM_BW * 1e3
+    t_op = TF32_PRODUCTS * flop / h100()["PEAK_TF32"] * 1e3
+    t_fma = flop / h100()["PEAK_FP32"] * 1e3
+    t_mem = nbytes / h100()["HBM_BW"] * 1e3
     return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
             "bound_by": "operations" if t_op >= t_mem else "bytes",
             "fma_bound_ms": max(t_fma, t_mem)}
@@ -1012,7 +1053,8 @@ def phase_zoo_times(session, image: int, convs: list, device,
     bounds = [roofline(case, b1_out(case), c["wl"]) for case, c in cases]
     t_op, t_mem, t_fma = (sum(b[k] * c["count"] for b, c in zip(bounds, convs))
                           for k in ("flop", "bytes", "fma_bound_ms"))
-    t_op, t_mem = TF32_PRODUCTS * t_op / PEAK_TF32 * 1e3, t_mem / MEM_BW * 1e3
+    t_op = TF32_PRODUCTS * t_op / h100()["PEAK_TF32"] * 1e3
+    t_mem = t_mem / h100()["HBM_BW"] * 1e3
     dev = groups["device_ms"]
     return {"distinct_convs": len(convs),
             "latency_ms_batch1": lat["median_ms"],
@@ -2620,8 +2662,8 @@ def attn_bound(b, hq, hkv, s, d, dtype, causal=True, window=0,
     flop = 4 * b * hq * d * attn_pairs(s, sk, causal, window)
     elt = 2 if dtype == torch.bfloat16 else 4
     nbytes = elt * (2 * b * hq * s * d + 2 * b * hkv * sk * d)
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-    t_op, t_mem = flop / peak * 1e3, nbytes / MEM_BW * 1e3
+    peak = h100()["PEAK_FLOPS" if dtype == torch.bfloat16 else "PEAK_FP32"]
+    t_op, t_mem = flop / peak * 1e3, nbytes / h100()["HBM_BW"] * 1e3
     return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
             "bound_by": "operations" if t_op >= t_mem else "bytes"}
 
@@ -2639,8 +2681,9 @@ def ssd_bound(bcn, h, q, n, p) -> dict:
     mma = bcn * pairs * 2 * n + bcn * h * pairs * 2 * p
     flop = mma + bcn * h * pairs * 2
     nbytes = 4 * (2 * bcn * q * n + bcn * h * q + 2 * bcn * h * q * p)
-    t_op = TF32_PRODUCTS * mma / PEAK_TF32 * 1e3
-    t_fma, t_mem = flop / PEAK_FP32 * 1e3, nbytes / MEM_BW * 1e3
+    t_op = TF32_PRODUCTS * mma / h100()["PEAK_TF32"] * 1e3
+    t_fma = flop / h100()["PEAK_FP32"] * 1e3
+    t_mem = nbytes / h100()["HBM_BW"] * 1e3
     return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
             "bound_by": "operations" if t_op >= t_mem else "bytes",
             "fma_bound_ms": max(t_fma, t_mem)}
@@ -2653,8 +2696,8 @@ def mm_bound(m, k, n, dtype) -> dict:
     flop = 2 * m * k * n
     elt = 2 if dtype == torch.bfloat16 else 4
     nbytes = elt * (m * k + k * n) + 4 * m * n
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-    t_op, t_mem = flop / peak * 1e3, nbytes / MEM_BW * 1e3
+    peak = h100()["PEAK_FLOPS" if dtype == torch.bfloat16 else "PEAK_FP32"]
+    t_op, t_mem = flop / peak * 1e3, nbytes / h100()["HBM_BW"] * 1e3
     return {"flop": flop, "bytes": nbytes, "bound_ms": max(t_op, t_mem),
             "bound_by": "operations" if t_op >= t_mem else "bytes"}
 
@@ -3030,6 +3073,14 @@ def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
         prof["idle_share_unprofiled"] = 1 - prof["device_ms"] / \
             out["decode_ms_batch1"]
     out["decode_profile"] = prof
+    if big is not None:
+        # the batch-4 step's device time, for its roofline share
+        cache = init_cache(cfg, big.batch, big.max_len, device)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            size=(big.batch, 1))).to(device)
+        pos = iter(range(big.max_len // 2, big.max_len))
+        out[f"decode_profile_batch{big.batch}"] = _device_busy(
+            lambda: decode_step(big._params, cfg, tok, cache, next(pos)), 16)
     emit(out)
     return out
 
@@ -3254,7 +3305,7 @@ def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
     weight leaf bit for bit; then, where asked, an unseen batch size
     planned from the packed source against the saving session's, and a
     copy with one flipped byte refused.  With ``keep`` the artifact is
-    moved there after, for the serving phase's start-up child."""
+    moved there after, for the serving and launch phases."""
     on_card = torch.device(device).type == "cuda"
     art, work = tmp / name, tmp / f"{name}-work"
     work.mkdir()
@@ -3378,11 +3429,13 @@ def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
     return line
 
 
-def _lm_artifact(run: dict, name: str, tmp: Path, device, prompts) -> dict:
+def _lm_artifact(run: dict, name: str, tmp: Path, device, prompts,
+                 keep: Path | None = None) -> dict:
     """Save an LM session, load it in a child, and hold the child to it:
     every weight leaf bit for bit, the same tokens for every prompt, and
     on the card B4 (or the model's attention kernel) once per layer per
-    prefill, with no search."""
+    prefill, with no search.  With ``keep`` the artifact is moved there
+    after, for the launch phase."""
     session = run["session"]
     on_card = torch.device(device).type == "cuda"
     cfg = session.cfg
@@ -3436,7 +3489,10 @@ def _lm_artifact(run: dict, name: str, tmp: Path, device, prompts) -> dict:
             "requests": [list(p) for p in prompts],
             "launches_per_request": got, "search_calls": res["searches"],
             "tokens_equal": True, "leaves_bit_identical": len(digests)}
-    shutil.rmtree(art)
+    if keep is None:
+        shutil.rmtree(art)
+    else:
+        shutil.move(art, keep)
     shutil.rmtree(work)
     emit(line)
     return line
@@ -3457,7 +3513,8 @@ def phase_artifacts(device, main_run: dict, lm_run: dict,
     search, no calibration probe, the saved ``transform_bw``); a copy of
     the first with one flipped byte must be refused.  All in a temporary
     directory of the checkout that the phase deletes, but for the first
-    artifact, which moves to ``keep`` where given."""
+    three artifacts, which move into the directory ``keep`` where given
+    (as ``<model>``, ``<model>-int8`` and the LM's name)."""
     from repro_torch.engine import compile
 
     model, image = main_run["model"], main_run["image"]
@@ -3469,15 +3526,17 @@ def phase_artifacts(device, main_run: dict, lm_run: dict,
         lines = [_cnn_artifact(
             main_run["session"], model, tmp, xs + [x_big], device,
             main_run["compile_s"], ["conv2d_nchwc_sm90"], respecialize=xr,
-            corrupt=True, keep=keep)]
+            corrupt=True, keep=keep and keep / model)]
         t0 = time.perf_counter()
         q8 = compile(model, (1, 3, image, image), seed=0, device=device,
                      dtype="int8", use_kernel=False)
         lines.append(_cnn_artifact(q8, f"{model}-int8", tmp, xs, device,
-                                   time.perf_counter() - t0, []))
+                                   time.perf_counter() - t0, [],
+                                   keep=keep and keep / f"{model}-int8"))
         del q8
         lines.append(_lm_artifact(lm_run, lm_run["model"], tmp, device,
-                                  prompts))
+                                  prompts,
+                                  keep=keep and keep / lm_run["model"]))
         if tuned_run is not None:
             lines.append(_cnn_artifact(
                 tuned_run["session"], f"{tuned_run['model']}-measured", tmp,
@@ -4058,8 +4117,7 @@ def phase_serving(device, smi: str, main_run: dict, lm_run: dict,
 
     t0 = time.perf_counter()
     session, image = main_run["session"], main_run["image"]
-    n_convs = sum(1 for nd in session.plan_for(1).planned.graph.topo_order()
-                  if nd.op in CONV_OPS)
+    n_convs = conv_nodes(session)
     rows = [r.rows for r in synth_trace("uniform", n=requests, max_rows=3,
                                         seed=0)]
     xs = _rows_images(rows, image, 13)
@@ -4082,6 +4140,469 @@ def phase_serving(device, smi: str, main_run: dict, lm_run: dict,
     emit({"phase": "serving", "step": "total", "card": smi,
           "seconds": time.perf_counter() - t0})
     return lines
+
+
+# ---------------------------------------------------------------------------
+# launch (A9): the serving command line and the roofline
+# ---------------------------------------------------------------------------
+
+LAUNCH_REQUESTS = 64       # ResNet-50 requests a served run
+LAUNCH_MAX_BATCH = 8       # rows a batch: the artifact's largest bucket
+LAUNCH_INT8_REQUESTS = 16  # the int8 artifact has bucket 1 only
+LAUNCH_LM = (3, 8)         # mamba2 streamed requests, new tokens each
+LAUNCH_ARCH = (2, 8, 4)    # --arch's batch, prompt length, new tokens
+LAUNCH_SPAWN = 16          # requests the spawned command line serves
+ROOFLINE_MODELS = ("qwen2-1.5b", "mamba2-130m")
+ROOFLINE_PREFILL = 2048
+# decode steps as phase 8 profiles them: (batch, the session's max_len),
+# at position max_len // 2 (LM_BIG's batch-4 session has max_len 1,024)
+ROOFLINE_DECODE = ((1, 2048), (4, LM_BIG[1]))
+
+
+@contextlib.contextmanager
+def server_recording():
+    """Record each ``AsyncServer`` made while the block runs and each
+    ``TokenStream`` its ``submit_stream`` returns, in order.  Both methods
+    are wrapped, not replaced."""
+    from repro_torch.engine.serving import AsyncServer
+
+    servers, streams = [], []
+    init, submit = AsyncServer.__init__, AsyncServer.submit_stream
+
+    def rec_init(self, *a, **kw):
+        init(self, *a, **kw)
+        servers.append(self)
+
+    def rec_submit(self, *a, **kw):
+        streams.append(submit(self, *a, **kw))
+        return streams[-1]
+
+    AsyncServer.__init__, AsyncServer.submit_stream = rec_init, rec_submit
+    try:
+        yield servers, streams
+    finally:
+        AsyncServer.__init__, AsyncServer.submit_stream = init, submit
+
+
+def serve_main(argv: list, device) -> dict:
+    """``repro_torch.launch.serve.main(argv + ["--device", ...])`` in this
+    process, the counts set to 0 just before and read just after: its
+    return value, the lines it printed, its servers and streams, the
+    launches by kernel (and B1's and B3's by route), searches, seconds."""
+    from repro_torch.core.local_search import search_calls
+    from repro_torch.launch import serve
+
+    argv = [str(a) for a in argv] + ["--device", torch.device(device).type]
+    out = io.StringIO()
+    reset_counts()
+    searches = search_calls()
+    t0 = time.perf_counter()
+    with server_recording() as (servers, streams), \
+            contextlib.redirect_stdout(out):
+        value = serve.main(argv)
+    seconds = time.perf_counter() - t0
+    fns = _kernel_fns()
+    return {"value": value, "lines": out.getvalue().splitlines(),
+            "servers": servers, "streams": streams,
+            "launches": read_counts(), "seconds": seconds,
+            "b1_routes": dict(fns["conv2d_nchwc"].launches_by_route),
+            "b3_routes": b3_routes(), "b2_routes": b2_routes(),
+            "searches": search_calls() - searches}
+
+
+def _served_line(run: dict, prefix: str) -> str:
+    hits = [ln for ln in run["lines"] if ln.startswith(prefix)]
+    if len(hits) != 1:
+        raise RuntimeError(f"the command line printed {len(hits)} lines "
+                           f"starting {prefix!r}: {run['lines'][-6:]}")
+    return hits[0]
+
+
+def launch_inputs(trace: str, n: int, max_batch: int, buckets: list,
+                  shape: tuple) -> list:
+    """The requests ``serve_artifact`` draws for ``trace`` (from
+    ``default_rng(0)``), as numpy arrays on the host."""
+    from repro_torch.engine import synth_trace
+
+    rng = np.random.default_rng(0)
+    if trace == "uniform":
+        return [rng.normal(size=shape).astype(np.float32) for _ in range(n)]
+    reqs = synth_trace(trace, n=n, seed=0, mean_rate=100.0,
+                       max_rows=min(max_batch, max(buckets)),
+                       priorities=("interactive", "standard", "batch"))
+    return [rng.normal(size=(r.rows,) + shape[1:]).astype(np.float32)
+            for r in reqs]
+
+
+def conv_nodes(session) -> int:
+    """The conv nodes (each one B1 launch on the kernel path) of a CNN
+    session's batch-1 plan."""
+    return sum(1 for nd in session.plan_for(1).planned.graph.topo_order()
+               if nd.op in CONV_OPS)
+
+
+def _check_served(name: str, run: dict, sess, x: np.ndarray, n: int,
+                  on_card: bool) -> dict:
+    """A served CNN run of ``n`` requests held to its gates: every request
+    completed, no search, the last output (of input ``x``) bit-identical
+    to ``padded_predict`` at one of the buckets, and on the kernel path B1
+    once per conv node a served batch (and a warm-up predict a bucket),
+    all sm90, no other kernel."""
+    from repro_torch.engine import padded_predict
+
+    st = run["servers"][0].stats
+    if st.n_completed != n or run["searches"]:
+        raise RuntimeError(f"{name}: {st.n_completed}/{n} served, "
+                           f"{run['searches']} searches")
+    got = run["value"].cpu().numpy()
+    match = [b for b in sess.batch_sizes if b >= x.shape[0] and _same(
+        [got], [padded_predict(sess, x, bucket=b).cpu().numpy()])]
+    if not match:
+        raise RuntimeError(f"{name}: the last output matches padded_predict "
+                           f"at none of the buckets {sess.batch_sizes}")
+    b1 = run["launches"]["conv2d_nchwc"]
+    want = conv_nodes(sess) if on_card and sess.use_kernel else 0
+    warm = len(sess.batch_sizes) * want
+    per_batch = (b1 - warm) / st.n_batches
+    others = {k: v for k, v in run["launches"].items()
+              if k != "conv2d_nchwc" and v}
+    if per_batch != want or others or run["b1_routes"]["sm90"] != b1:
+        raise RuntimeError(f"{name}: B1 {per_batch} a served batch "
+                           f"(expected {want}), by route {run['b1_routes']},"
+                           f" other launches {others}")
+    return {"requests": n, "batches": st.n_batches,
+            "rows_padded": st.rows_padded, "seconds": run["seconds"],
+            "served": _served_line(run, "served "),
+            "bit_identical_at_bucket": match,
+            "b1_launches": b1, "b1_per_served_batch": per_batch,
+            "b1_warmup_launches": warm, "searches": run["searches"]}
+
+
+def launch_cnn(art: Path, device, smi: str, tmp: Path,
+               n: int = LAUNCH_REQUESTS,
+               max_batch: int = LAUNCH_MAX_BATCH) -> dict:
+    """phase 10's ResNet-50 artifact through the command line: a uniform
+    stream, a bursty trace with ``--health`` and live stats, and
+    ``--buckets auto`` on a copy, whose re-saved artifact must load and
+    predict (B1 once per conv node)."""
+    from repro_torch.engine import InferenceSession
+
+    on_card = torch.device(device).type == "cuda"
+    sess = InferenceSession.load(art, device=device)
+    (name,) = sess.input_spec
+    shape = (1,) + sess.input_spec[name][1:]
+    base = ["--artifact", art, "--requests", n, "--max-batch", max_batch]
+    out = {"phase": "launch", "step": "cnn", "card": smi,
+           "artifact": art.name, "buckets": sess.batch_sizes}
+    for trace, flags in (("uniform", []),
+                         ("bursty", ["--trace", "bursty", "--health",
+                                     "--stats-interval", "0.5"])):
+        run = serve_main(base + flags, device)
+        x = launch_inputs(trace, n, max_batch, sess.batch_sizes, shape)[-1]
+        out[trace] = _check_served(f"launch {trace}", run, sess, x, n,
+                                   on_card)
+        if trace == "bursty":
+            out[trace].update(
+                health=any(ln.startswith("health:") for ln in run["lines"]),
+                stats_lines=sum(ln.startswith("[stats]")
+                                for ln in run["lines"]))
+    copy_ = tmp / f"{art.name}-auto"
+    shutil.copytree(art, copy_)
+    run = serve_main(["--artifact", copy_, "--requests", n, "--max-batch",
+                      max_batch, "--trace", "bursty", "--buckets", "auto"],
+                     device)
+    resaved = _served_line(run, "re-saved ")
+    auto = InferenceSession.load(copy_, device=device)
+    reset_counts()
+    for b in auto.batch_sizes:
+        y = auto.predict(torch.zeros((b,) + shape[1:], device=device))
+        if tuple(y.shape)[0] != b or not torch.isfinite(y).all():
+            raise RuntimeError(f"--buckets auto: the re-saved artifact's "
+                               f"batch-{b} predict is wrong")
+    b1 = read_counts()["conv2d_nchwc"]
+    if b1 != (conv_nodes(auto) * len(auto.batch_sizes) if on_card else 0):
+        raise RuntimeError(f"--buckets auto: B1 {b1} over "
+                           f"{auto.batch_sizes}")
+    out["buckets_auto"] = {"line": resaved, "buckets": auto.batch_sizes,
+                           "seconds": run["seconds"],
+                           "b1_launches_loaded": b1}
+    shutil.rmtree(copy_)
+    emit(out)
+    return out
+
+
+def launch_int8(art: Path, device, smi: str,
+                n: int = LAUNCH_INT8_REQUESTS) -> dict:
+    """phase 10's int8 artifact (the lowerings, bucket 1): ``--dtype
+    int8`` serves it with no B1 launch, bit-identical to
+    ``padded_predict``; ``--dtype fp32`` is refused."""
+    from repro_torch.engine import InferenceSession
+
+    sess = InferenceSession.load(art, device=device)
+    (name,) = sess.input_spec
+    shape = (1,) + sess.input_spec[name][1:]
+    base = ["--artifact", art, "--requests", n, "--max-batch", 1]
+    run = serve_main(base + ["--dtype", "int8"], device)
+    x = launch_inputs("uniform", n, 1, sess.batch_sizes, shape)[-1]
+    line = _check_served("launch int8", run, sess, x, n,
+                         torch.device(device).type == "cuda")
+    try:
+        serve_main(base + ["--dtype", "fp32"], device)
+    except ValueError as e:
+        if not re.search("fp32 requested.*int8 precision", str(e)):
+            raise
+        refused = str(e)
+    else:
+        raise RuntimeError("--dtype fp32 served the int8 artifact")
+    out = {"phase": "launch", "step": "int8", "card": smi,
+           "artifact": art.name, **line, "fp32_refused": refused[:160]}
+    emit(out)
+    return out
+
+
+def launch_lm(art: Path, device, smi: str, requests: int = LAUNCH_LM[0],
+              new: int = LAUNCH_LM[1]) -> dict:
+    """phase 10's mamba2-130m artifact streamed through the command line:
+    every request completes with no search, B4 once per layer a prefill
+    (the prewarm's buckets and the requests' own), the first prompt's
+    streamed tokens equal ``LMSession.generate`` of the same prompt."""
+    from repro_torch.engine import LMSession
+
+    on_card = torch.device(device).type == "cuda"
+    run = serve_main(["--artifact", art, "--requests", requests, "--gen",
+                      new], device)
+    sess = LMSession.load(art, device=device)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1, sess.max_len - new + 2, size=requests)
+    prompts = [rng.integers(0, sess.cfg.vocab, size=(sess.batch, int(m)))
+               for m in lens]
+    buckets = [sess.bucket_for(int(m)) for m in lens]
+    prefills = len(sess.seq_buckets) + sum(b is not None for b in buckets)
+    b4 = run["launches"]["ssd_intra"]
+    want_b4 = sess.cfg.n_layers * prefills if on_card else 0
+    if run["value"] != requests or run["searches"] or b4 != want_b4:
+        raise RuntimeError(f"launch lm: {run['value']}/{requests} done, "
+                           f"{run['searches']} searches, B4 {b4} (expected "
+                           f"{want_b4})")
+    streamed = run["streams"][0].result()
+    want = sess.generate(prompts[0], new)
+    if not np.array_equal(np.asarray(streamed), want):
+        raise RuntimeError("launch lm: the first stream's tokens differ "
+                           "from generate's")
+    out = {"phase": "launch", "step": "lm", "card": smi,
+           "artifact": art.name, "requests": requests, "new_tokens": new,
+           "prompt_lens": [int(m) for m in lens], "buckets": buckets,
+           "catchup_steps": [int(m) - (b or 0) for m, b in zip(lens,
+                                                             buckets)],
+           "b4_launches": b4, "b4_per_prefill": b4 / prefills,
+           "prefills": prefills, "searches": run["searches"],
+           "tokens_equal_generate": True, "seconds": run["seconds"],
+           "streamed": _served_line(run, "streamed ")}
+    emit(out)
+    return out
+
+
+def launch_arch(device, smi: str, names=None, sizes=LAUNCH_ARCH,
+                ref_device="cpu", tol: float = LM_LOGIT_TOL) -> dict:
+    """``--arch`` for each of ``ARCHS`` at the reference's reduced size:
+    the kernels each family launches (``lm_kernels_of``: B3 on its fp32
+    route, B2 in the moe configs, B4 in mamba2), and the tokens against a
+    run on ``ref_device`` of the same parameters (drawn as ``main`` draws
+    them, then copied): teacher-forced, every step's logits within ``tol``
+    of the largest; greedy, the tokens equal at every step whose top-2
+    margin on the reference side exceeds ``tol``, up to the first
+    near-tie that changes a token."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.lm.model import init_params, params_to
+
+    on_card = torch.device(device).type == "cuda"
+    batch, plen, gen = sizes
+    args = ["--batch", batch, "--prompt-len", plen, "--gen", gen]
+    rows = []
+    for name in names or sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        run = serve_main(["--arch", name, *args], device)
+        kernels = lm_kernels_of(cfg)
+        want_l = {k: (pp + (gen - 1) * pd) if on_card else 0
+                  for k, (pp, pd) in kernels.items()}
+        got_l = {k: run["launches"][k] for k in kernels}
+        others = {k: v for k, v in run["launches"].items()
+                  if k not in kernels and v}
+        if got_l != want_l or others or run["b3_routes"]["sm90"]:
+            raise RuntimeError(f"--arch {name}: launches {got_l}, expected "
+                               f"{want_l}; others {others}; B3 by route "
+                               f"{run['b3_routes']}")
+        params = init_params(cfg, 0, device)
+        ref_logits, dut_logits = [], []
+        prompts, extra = serve.arch_inputs(cfg, batch, plen, ref_device)
+        want, _, _ = serve.greedy_generate(
+            params_to(params, ref_device), cfg, prompts, gen,
+            pick=_recording(ref_logits), **extra)
+        prompts, extra = serve.arch_inputs(cfg, batch, plen, device)
+        serve.greedy_generate(params, cfg, prompts, gen,
+                              pick=_recording(dut_logits,
+                                              feed=want.numpy()), **extra)
+        errs = [float(np.abs(g - w).max() / np.abs(w).max())
+                for w, g in zip(ref_logits, dut_logits)]
+        if max(errs) > tol or not all(np.isfinite(g).all()
+                                      for g in dut_logits):
+            raise RuntimeError(f"--arch {name}: logits differ by "
+                               f"{max(errs):.3g} of the largest")
+        got, want = run["value"].cpu().numpy(), want.numpy()
+        compared = 0
+        for i, w in enumerate(ref_logits):
+            top2 = np.sort(w, axis=-1)[:, -2:]
+            margin = float(((top2[:, 1] - top2[:, 0])
+                            / np.abs(w).max(axis=-1)).min())
+            same = bool((got[:, i] == want[:, i]).all())
+            if margin > tol:
+                if not same:
+                    raise RuntimeError(f"--arch {name}: tokens of step {i} "
+                                       f"differ, top-2 margin {margin:.3g}")
+                compared += 1
+            elif not same:
+                break
+        rows.append({"arch": name, "family": cfg.family, "launches": got_l,
+                     "b3_routes": run["b3_routes"],
+                     "b2_routes": run["b2_routes"],
+                     "max_logit_err_rel": max(errs),
+                     "tokens_compared": compared, "steps": gen,
+                     "seconds": run["seconds"],
+                     "prefill": _served_line(run, "prefill ")})
+    out = {"phase": "launch", "step": "arch", "card": smi, "args": args,
+           "logit_tol_rel": tol, "archs": rows}
+    emit(out)
+    return out
+
+
+def launch_spawn(art: Path, device, smi: str, n: int = LAUNCH_SPAWN) -> dict:
+    """``python -m repro_torch.launch.serve --artifact ART`` as a fresh
+    process: it must exit 0 and serve every request; the seconds from the
+    spawn to its exit."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--artifact",
+           str(art), "--requests", str(n)]
+    if torch.device(device).type != "cuda":
+        cmd += ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=CHILD_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    served = [ln for ln in proc.stdout.splitlines()
+              if ln.startswith(f"served {n}/{n} ")]
+    if proc.returncode != 0 or not served:
+        raise RuntimeError(f"the command line exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    out = {"phase": "launch", "step": "spawn", "card": smi,
+           "command": " ".join(cmd[1:]), "spawn_to_exit_s": seconds,
+           "served": served[0]}
+    emit(out)
+    return out
+
+
+def roofline_counts(cfg, kind: str, batch: int, seq: int,
+                    max_len: int) -> dict:
+    """``count_costs`` of one full-width step on the meta device: a
+    ``seq``-token prefill, or a decode step at position ``seq - 1`` of a
+    ``max_len`` cache (it reads ``seq`` cached positions); with the
+    seconds the count took."""
+    from repro_torch.analysis.flops import count_costs
+    from repro_torch.models.lm.model import (decode_step, init_cache,
+                                             init_params, prefill)
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, "meta")
+    if kind == "prefill":
+        c = count_costs(lambda p, t: prefill(p, cfg, t, max_len=max_len),
+                        params, torch.zeros((batch, seq), dtype=torch.long))
+    else:
+        c = count_costs(lambda p, t, cache: decode_step(p, cfg, t, cache,
+                                                        seq - 1),
+                        params, torch.zeros((batch, 1), dtype=torch.long),
+                        init_cache(cfg, batch, max_len, "meta"))
+    return {**c, "count_s": time.perf_counter() - t0}
+
+
+def launch_roofline(smi: str, lm_e2e: dict, models=ROOFLINE_MODELS,
+                    prefill_len: int = ROOFLINE_PREFILL,
+                    batches=ROOFLINE_DECODE) -> list:
+    """One ``"phase": "roofline"`` line a model: each step (a
+    ``prefill_len`` prefill; a decode step of each (batch, max_len) of
+    ``batches`` at position max_len // 2, as phase 8 profiles them)
+    counted at full width on meta, ``model_flops``, ``model_bytes``, the
+    roofline terms at the H100's peaks, and ``ideal_step_s`` over the
+    step's device time from phase 8 (``lm_e2e``: each model's line;
+    "not measured" where it has none)."""
+    from repro_torch.analysis.roofline import (RooflineReport, model_bytes,
+                                               model_flops)
+    from repro_torch.configs import ARCHS
+
+    lines = []
+    for m in models:
+        cfg = ARCHS[m]
+        e2e = lm_e2e.get(m) or {}
+        steps = [("prefill", 1, prefill_len, prefill_len,
+                  e2e.get("prefill_profile"))]
+        steps += [("decode", b, n // 2 + 1, n,
+                   e2e.get("decode_profile" if b == 1
+                           else f"decode_profile_batch{b}"))
+                  for b, n in batches]
+        rows = []
+        for kind, b, seq, max_len, prof in steps:
+            dev_ms = (prof or {}).get("device_ms")
+            c = roofline_counts(cfg, kind, b, seq, max_len)
+            r = RooflineReport(
+                arch=m, shape=f"{kind}_b{b}_s{seq}", mesh="1", chips=1,
+                flops_per_device=c["flops"], bytes_per_device=c["heavy_bytes"],
+                collective_bytes_per_device=0.0, collectives={},
+                model_flops_total=model_flops(cfg, kind, b, seq),
+                model_bytes_total=model_bytes(cfg, kind, b, seq))
+            measured = isinstance(dev_ms, float)
+            rows.append({"kind": kind, "batch": b, "seq": seq,
+                         "max_len": max_len,
+                         "counted_flops": c["flops"],
+                         "counted_heavy_bytes": c["heavy_bytes"],
+                         "count_s": c["count_s"],
+                         "model_flops": r.model_flops_total,
+                         "model_bytes": r.model_bytes_total,
+                         "compute_s": r.compute_s, "memory_s": r.memory_s,
+                         "bottleneck": r.bottleneck,
+                         "ideal_step_s": r.ideal_step_s,
+                         "useful_flops_ratio": r.useful_flops_ratio,
+                         "device_ms": dev_ms if measured else "not measured",
+                         "roofline_share": r.ideal_step_s * 1e3 / dev_ms
+                         if measured else "not measured"})
+        lines.append({"phase": "roofline", "model": m, "card": smi,
+                      "dtype": cfg.dtype, "steps": rows})
+        emit(lines[-1])
+    return lines
+
+
+def phase_launch(device, smi: str, cnn_art: Path, int8_art: Path,
+                 lm_art: Path, lm_e2e: dict, arch_names=None,
+                 roofline_models=ROOFLINE_MODELS) -> dict:
+    """A9 on the card: the serving command line over phase 10's artifacts
+    (``cnn_art``: ResNet-50, batch 1 and 8; ``int8_art``: its int8
+    lowering session; ``lm_art``: mamba2-130m), the ``--arch`` path for
+    every architecture, the command line as a fresh process, and the
+    roofline lines (``lm_e2e``: phase 8's line of each model, by name);
+    then the phase's seconds."""
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix=".launch-", dir=ROOT))
+    try:
+        cnn = launch_cnn(cnn_art, device, smi, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"cnn": cnn, "int8": launch_int8(int8_art, device, smi),
+           "lm": launch_lm(lm_art, device, smi),
+           "arch": launch_arch(device, smi, arch_names),
+           "spawn": launch_spawn(cnn_art, device, smi),
+           "roofline": launch_roofline(smi, lm_e2e, roofline_models)}
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "launch", "step": "total", "card": smi,
+          "seconds": out["seconds"]})
+    return out
 
 
 def _leaves(tree):
@@ -4213,6 +4734,32 @@ def serving_only(device, smi: str) -> int:
     return 0
 
 
+def launch_only(device, smi: str) -> int:
+    """The launch phase alone, on artifacts it saves itself: ResNet-50 at
+    224 (batch 1 and 8, the source packed), its int8 session on the
+    lowerings (batch 1) and mamba2-130m; the roofline lines' device times
+    are "not measured" (phase 8 does not run)."""
+    from repro_torch.engine import compile
+
+    kept = Path(tempfile.mkdtemp(prefix=".artifacts-", dir=ROOT))
+    try:
+        session = compile(MODEL, (1, 3, IMAGE, IMAGE), seed=0, device=device)
+        session.specialize(BIG_BATCH)
+        session.save(kept / MODEL)
+        compile(MODEL, (1, 3, IMAGE, IMAGE), seed=0, device=device,
+                dtype="int8", use_kernel=False).save(kept / f"{MODEL}-int8")
+        compile("mamba2-130m", (1, 2048), seed=0,
+                device=device).save(kept / "mamba2-130m")
+        del session
+        _release()
+        phase_launch(device, smi, kept / MODEL, kept / f"{MODEL}-int8",
+                     kept / "mamba2-130m", {})
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+    memory_line("launch", device)
+    return 0
+
+
 def a8_only(device, smi: str) -> int:
     """The A8 families alone: B3 at their shapes against its plain version
     and timed (``A8_ATTN``), then ``phase_a8``; each kernel builds at its
@@ -4278,6 +4825,8 @@ def main() -> int:
         return serving_only(device, smi)
     if sys.argv[1:] == ["--a8-only"]:
         return a8_only(device, smi)
+    if sys.argv[1:] == ["--launch-only"]:
+        return launch_only(device, smi)
     if sys.argv[1:2] == ["--b3-times"] and len(sys.argv) <= 3:
         return b3_times(device, smi, Path(sys.argv[2]).resolve()
                         if len(sys.argv) == 3 else ROOT)
@@ -4334,13 +4883,17 @@ def main() -> int:
     kept = Path(tempfile.mkdtemp(prefix=".artifacts-", dir=ROOT))
     try:
         artifacts = phase_artifacts(device, main_run, lm_runs["mamba2-130m"],
-                                    tuning, keep=kept / MODEL)
+                                    tuning, keep=kept)
         memory.append(memory_line("artifacts", device))
         serving = phase_serving(device, smi, main_run,
                                 lm_runs["mamba2-130m"], kept / MODEL)
+        memory.append(memory_line("serving", device))
+        launch = phase_launch(device, smi, kept / MODEL,
+                              kept / f"{MODEL}-int8", kept / "mamba2-130m",
+                              {r["model"]: r for r in lm_e2e})
     finally:
         shutil.rmtree(kept, ignore_errors=True)
-    memory.append(memory_line("serving", device))
+    memory.append(memory_line("launch", device))
     # release every earlier session before arctic-480b's 55 GB of weights
     for run in [main_run, tuning, *lm_runs.values()]:
         run.pop("session")
@@ -4365,8 +4918,9 @@ def main() -> int:
                    * r["count"] for r in rows)
 
     t_op = TF32_PRODUCTS * sum(r["flop"] * r["count"] for r in rows) \
-        / PEAK_TF32 * 1e3
-    t_mem = sum(r["bytes"] * r["count"] for r in rows) / MEM_BW * 1e3
+        / h100()["PEAK_TF32"] * 1e3
+    t_mem = sum(r["bytes"] * r["count"] for r in rows) / h100()["HBM_BW"] \
+        * 1e3
     # B1: the sum per batch-1 predict over the 53 convs, by the card's time
     kernels = [{"name": "conv2d_nchwc_sm90", "route": "cuda",
                 "source": KERNEL_SOURCE,
@@ -4387,6 +4941,10 @@ def main() -> int:
                 "artifact_launches_per_predict":
                 artifacts[0]["b1_launches_per_predict"],
                 "serving_launches": serving["b1_launches"],
+                "launch_launches": {
+                    t: {k: launch["cnn"][t][k] for k in (
+                        "b1_launches", "batches", "b1_per_served_batch")}
+                    for t in ("uniform", "bursty")},
                 "tuning_launches_per_predict": {
                     f"{t['model']} {t.get('mode', t['phase'])}":
                     t["b1_per_predict"] for t in tuning["lines"]
@@ -4417,7 +4975,12 @@ def main() -> int:
             "max_abs_err": lm_worst[fn][route] if route else lm_worst[fn],
             "ms": n * ms, "plain_ms": n * r["plain_ms"],
             "bound_ms": n * r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None if lib is None else n * lib})
+            "library_ms": None if lib is None else n * lib,
+            # the launcher's --arch runs of the ten reduced configs (fp32:
+            # B3's fma route, B2's splitk)
+            "launch_arch_launches": sum(
+                a["b2_routes"][route] if route else a["launches"].get(fn, 0)
+                for a in launch["arch"]["archs"])})
         if name == "flash_attention":
             # the main path's B3 is the bf16 route; fp32 takes the FMA one.
             # Its launches on each LM path, and its times at the A8
@@ -4444,7 +5007,8 @@ def main() -> int:
                 artifact_launches_per_request=[
                     r["ssd_intra"] for r in artifacts[2]
                     ["launches_per_request"]],
-                serving_stream_launches=serving["b4_stream_launches"])
+                serving_stream_launches=serving["b4_stream_launches"],
+                launch_stream_launches=launch["lm"]["b4_launches"])
     lm_main = [{k: v for k, v in r.items()
                 if k not in ("session", "big_session")}
                for r in lm_runs.values()]
@@ -4457,6 +5021,7 @@ def main() -> int:
               "tuning": tuning["lines"], "artifacts": artifacts,
               "serving": {k: serving[k] for k in (
                   "load", "chaos", "trace", "stream", "startup", "fleet")},
+              "launch": launch,
               "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+from repro_torch.analysis.roofline import HBM_BW, NVLINK_BW, PEAK_FP32
 from repro_torch.core.layout import Layout, transform_bytes
 from repro_torch.core.schedule import ConvSchedule, ConvWorkload
 
@@ -67,7 +68,7 @@ class MachineModel:
 
     @classmethod
     def h100(cls) -> "MachineModel":
-        return cls(peak_flops=67e12, mem_bw=3.35e12, link_bw=450e9,
+        return cls(peak_flops=PEAK_FP32, mem_bw=HBM_BW, link_bw=NVLINK_BW,
                    fast_mem_bytes=232_448, tile_m=64, tile_n=64, tile_k=32,
                    cores=132, working_set="b1_launch")
 

@@ -31,6 +31,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the devices on which a wrapper takes its kernel's plain version instead of
+# launching: the CPU, and ``meta`` (shapes alone, as ``analysis.flops``
+# counts a model at full width: nothing is launched or allocated there)
+PLAIN_DEVICES = ("cpu", "meta")
+
 _loaded: dict = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()

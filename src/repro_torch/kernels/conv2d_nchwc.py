@@ -21,7 +21,7 @@ on the fp32 FMA units); the source's header says what its design does
 about that.  ``launch_plan`` is the launch's plan (cluster
 size, pooled patch, shared memory), computed here so the CPU tests reach
 it.  It is built on first use by ``kernels/build.py`` (``nvcc`` for
-``sm_90a``, a plain C entry loaded with ``ctypes``).  A CPU tensor takes
+``sm_90a``, a plain C entry loaded with ``ctypes``).  A CPU or meta tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.
 ``conv2d_nchwc.launches`` counts every launch,
 ``conv2d_nchwc.launches_by_route`` those of each route.
@@ -317,7 +317,7 @@ def conv2d_nchwc(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
     spec = epilogue or IDENTITY
     if spec.has_matmul_tail:
         raise ValueError("the conv kernel has no matmul-tail stages")
-    if x_blocked.device.type == "cpu":
+    if x_blocked.device.type in _build.PLAIN_DEVICES:
         return conv2d_nchwc_plain(x_blocked, w_blocked, scale, shift,
                                   residual, out_buf, stride=stride,
                                   epilogue=spec)

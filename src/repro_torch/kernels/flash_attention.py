@@ -22,7 +22,7 @@ The route is chosen by dtype before any launch (``_route``):
   the same head dims.
 
 Each source's header says what bounds it on the H100 and what its design
-does about it.  A CPU tensor takes the plain version; a CUDA tensor
+does about it.  A CPU or meta tensor takes the plain version; a CUDA tensor
 launches its route's kernel or raises.  ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_by_route`` those of each
 route.
@@ -141,7 +141,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     signature of the reference's ``flash_attention_xla``: ``q_chunk`` and
     ``kv_chunk`` are the plain version's chunks and the kernel's tiles are
     its own."""
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
     if q.device.type != "cuda":

@@ -27,7 +27,7 @@ the same inputs are bit-identical.
 ``matmul_plain`` keeps the reference's block structure: (bm, bk, bn)
 blocks of ``MatmulSchedule``, fp32 accumulation across the k blocks, the
 epilogue on each accumulator block at ``(i*bm, j*bn)``, and a softmax only
-over a row held in one N-block.  A CPU tensor takes it; a CUDA tensor
+over a row held in one N-block.  A CPU or meta tensor takes it; a CUDA tensor
 launches its route's kernel or raises.  ``matmul_blocked.launches`` counts
 every launch, ``matmul_blocked.launches_by_route`` those of each route.
 """
@@ -161,14 +161,14 @@ def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *,
                    epilogue: EpilogueSpec = IDENTITY,
                    n_valid: Optional[int] = None) -> torch.Tensor:
     """``(M, K) @ (K, N)`` under ``epilogue``'s matmul tail; the signature
-    of the reference's ``matmul_pallas``.  On a CPU tensor this is
+    of the reference's ``matmul_pallas``.  On a CPU or meta tensor this is
     ``matmul_plain`` with ``schedule``.  On a CUDA tensor it launches the
     kernel of ``_route``, which ignores ``schedule``: ``a`` and ``b``
     contiguous, one of float32 or bfloat16, ``out_dtype`` float32 or
     ``a``'s type, and 16-byte aligned for the splitk and sm90 routes.
     ``n_valid`` (softmax only) marks the first ``n_valid`` columns as real
     when N carries padding."""
-    if a.device.type == "cpu":
+    if a.device.type in _build.PLAIN_DEVICES:
         return matmul_plain(a, b, schedule=schedule, out_dtype=out_dtype,
                             epilogue=epilogue, n_valid=n_valid)
     if a.device.type != "cuda":

@@ -14,7 +14,7 @@ scores formed once for a group of heads.  The source's header says what
 bounds it on the H100 and how it is built; ``launch_plan`` says how a
 launch is cut into blocks.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+A CPU or meta tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``ssd_intra.launches`` counts the kernel's launches.
 """
 from __future__ import annotations
@@ -103,7 +103,7 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, acum: torch.Tensor,
     """cc, bc: (BC, Q, N); acum: (BC, H, Q); xd: (BC, H, Q, P), all fp32
     and contiguous on the card, N <= MAX_N and P <= MAX_P.  Returns y_diag
     (BC, H, Q, P)."""
-    if cc.device.type == "cpu":
+    if cc.device.type in _build.PLAIN_DEVICES:
         return ssd_intra_plain(cc, bc, acum, xd)
     if cc.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {cc.device}")

@@ -61,17 +61,22 @@ class _Init:
     and filled one matrix (one layer, one expert) at a time, in row chunks
     of at most ``DRAW_ELEMS`` fp32 values, so that no fp32 copy of a whole
     stacked leaf exists: arctic-480b's ``experts.wu`` of one layer is
-    8.9 GB in bf16 and would be 17.8 GB in fp32."""
+    8.9 GB in bf16 and would be 17.8 GB in fp32.  On the ``meta`` device
+    (shapes alone, for ``analysis.flops.count_costs``) nothing is drawn:
+    a meta tensor holds no values, and no generator lives there."""
 
     def __init__(self, cfg: LMConfig, seed: int, device) -> None:
         self.cfg = cfg
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.gen = (None if self.device.type == "meta" else
+                    torch.Generator(device=self.device).manual_seed(seed))
 
     def mat(self, shape, scale=None) -> torch.Tensor:
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
         rows, cols = shape[-2], shape[-1]
         out = torch.empty(shape, dtype=_dt(self.cfg), device=self.device)
+        if self.gen is None:
+            return out
         step = max(1, DRAW_ELEMS // cols)
         for m in out.view(-1, rows, cols):
             for r0 in range(0, rows, step):

@@ -197,9 +197,17 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_other_devices_raise():
+def test_other_devices_raise(monkeypatch):
+    """A meta tensor (shapes alone, as ``analysis.flops`` counts) takes the
+    plain version and launches nothing; a device that is neither a plain
+    one nor CUDA raises (here meta, taken out of the plain set)."""
     x = torch.empty((1, 1, 5, 5, 4), device="meta")
     w = torch.empty((1, 1, 3, 3, 4, 4), device="meta")
+    before = kmod.conv2d_nchwc.launches
+    got = kmod.conv2d_nchwc(x, w)
+    assert got.device.type == "meta" and got.shape == (1, 1, 3, 3, 4)
+    assert kmod.conv2d_nchwc.launches == before
+    monkeypatch.setattr(kbuild, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no conv kernel"):
         kmod.conv2d_nchwc(x, w)
     with pytest.raises(ValueError, match="matmul-tail"):

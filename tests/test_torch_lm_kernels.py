@@ -198,8 +198,15 @@ def test_flash_cpu_tensor_takes_plain_version(rng):
                                rtol=0, atol=0)
 
 
-def test_flash_other_devices_raise():
+def test_flash_other_devices_raise(monkeypatch):
+    """meta takes the plain version (no launch); a device that is neither a
+    plain one nor CUDA raises (meta, taken out of the plain set)."""
     q = torch.empty((1, 2, 8, 16), device="meta")
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, q, q)
+    assert got.device.type == "meta" and got.shape == q.shape
+    assert fa.flash_attention.launches == before
+    monkeypatch.setattr(kbuild, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         fa.flash_attention(q, q, q)
 
@@ -291,11 +298,19 @@ def test_ssd_cpu_tensor_takes_plain_version(rng):
     torch.testing.assert_close(got, sc.ssd_intra_plain(*args), rtol=0, atol=0)
 
 
-def test_ssd_other_devices_raise():
+def test_ssd_other_devices_raise(monkeypatch):
+    """meta takes the plain version (no launch); a device that is neither a
+    plain one nor CUDA raises (meta, taken out of the plain set)."""
     cc = torch.empty((1, 8, 4), device="meta")
     xd = torch.empty((1, 2, 8, 4), device="meta")
+    acum = torch.empty((1, 2, 8), device="meta")
+    before = sc.ssd_intra.launches
+    got = sc.ssd_intra(cc, cc, acum, xd)
+    assert got.device.type == "meta" and got.shape == xd.shape
+    assert sc.ssd_intra.launches == before
+    monkeypatch.setattr(kbuild, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no SSD kernel"):
-        sc.ssd_intra(cc, cc, torch.empty((1, 2, 8), device="meta"), xd)
+        sc.ssd_intra(cc, cc, acum, xd)
 
 
 @pytest.mark.parametrize("name,symbol", [

@@ -284,7 +284,7 @@ def test_pad_operands_matches_reference_padding():
     assert nv4 is None
 
 
-def test_wrapper_routes_cpu_to_plain_and_counts_no_launch():
+def test_wrapper_routes_cpu_to_plain_and_counts_no_launch(monkeypatch):
     a, b = (torch.from_numpy(t) for t in _ab(64, 128, 128))
     before = matmul_blocked.launches
     spec = EpilogueSpec(scale=0.5, relu=True)
@@ -294,6 +294,13 @@ def test_wrapper_routes_cpu_to_plain_and_counts_no_launch():
                         epilogue=spec)
     assert torch.equal(got, want)
     assert matmul_blocked.launches == before
+    # meta (shapes alone) takes the plain version too; a device that is
+    # neither a plain one nor CUDA raises (meta, out of the plain set)
+    got = matmul_blocked(a.to("meta"), b.to("meta"),
+                         schedule=MatmulSchedule(32, 64, 64), epilogue=spec)
+    assert got.device.type == "meta" and got.shape == want.shape
+    assert matmul_blocked.launches == before
+    monkeypatch.setattr(build, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match="no matmul kernel"):
         matmul_blocked(a.to("meta"), b.to("meta"))
 
