@@ -197,6 +197,26 @@ Phases, each a function of a device and a size:
                 ``generate``'s, nothing searched, and each ``--arch`` run's
                 kernels launch as its family predicts (B3 on its fp32
                 route, B2 in the moe configs, B4 in mamba2).
+   train      — A10a on the card (``phase_train``), after every earlier
+                session is released: each kernel's autograd Function
+                against autograd of its plain version (B3 at qwen2-1.5b's
+                training shape in bf16 and in fp32 at head dims 16, 64
+                and 256 windowed, non-causal and cross; B4 at
+                mamba2-130m's; B2 at arctic-480b's router), the backward's
+                ms a call; qwen2-1.5b and mamba2-130m at full width, 2
+                layers, fp32, card against CPU (loss, every gradient leaf,
+                the parameters after one AdamW step); both at full width
+                and depth in bf16 (batch 2 and 4 x 2,048 tokens, remat for
+                mamba2) through ``make_train_step``: B3 28 forward
+                launches (sm90) and 28 backward calls a qwen2 step, B4 48
+                (24 and the recompute) and 24 a mamba2 step, step ms,
+                tokens/s, the card's ms split into forward kernels,
+                backward Functions, optimizer and the rest, peak memory,
+                the roofline share; ``launch.train.main`` on the card:
+                the reference's system tests' runs against a CPU run of
+                the same weights, 200 steps of reduced qwen2-1.5b whose
+                loss must fall, a resume bit-identical to the saved
+                state, one step of each reduced config.
                 The earlier models' sessions are released before
                 arctic-480b's phases, and each phase prints the card's
                 peak allocated memory and the script's elapsed seconds.
@@ -243,7 +263,11 @@ then have no device time), and
 
     python3 chip_smoke.py --serving-only
 
-the serving phase alone, on sessions it compiles itself, and
+the serving phase alone, on sessions it compiles itself,
+
+    python3 chip_smoke.py --train-only
+
+the train phase alone (after the parallel build), and
 
     python3 chip_smoke.py --b3-times [CHECKOUT]
 
@@ -270,6 +294,7 @@ import gc
 import hashlib
 import io
 import json
+import math
 import os
 import re
 import runpy
@@ -2054,9 +2079,10 @@ def _kernel_fns() -> dict:
 def reset_counts() -> None:
     for fn in _kernel_fns().values():
         fn.launches = 0
-        by_route = getattr(fn, "launches_by_route", {})
-        for route in by_route:
-            by_route[route] = 0
+        for counts in (getattr(fn, "launches_by_route", {}),
+                       getattr(fn, "backward_calls", {})):
+            for route in counts:
+                counts[route] = 0
 
 
 def b3_routes() -> dict:
@@ -4605,6 +4631,648 @@ def phase_launch(device, smi: str, cnn_art: Path, int8_art: Path,
     return out
 
 
+# ---------------------------------------------------------------------------
+# train: A10a, training through the port's trainer (after launch, before
+# arctic-480b)
+# ---------------------------------------------------------------------------
+
+# full width and depth, bf16, random weights from seed 0: batch, seq
+TRAIN_FULL = {"qwen2-1.5b": (2, 2048), "mamba2-130m": (4, 2048)}
+TRAIN_STEPS = 4              # timed steps, after one warm-up
+TRAIN_TRACE = 2              # steps in the profiler trace
+# fp32 at full width and 2 layers, card against CPU, on one batch
+TRAIN_PARITY = dict(n_layers=2, batch=1, seq=256)
+TRAIN_LR = 1e-3
+# fp32 gradients, kernel against plain and card against CPU: sums of up to
+# K = 8,960 terms (and the backward's products of them) in another order,
+# relative to the largest gradient of the leaf (phase_lm_kernels' 1e-4)
+GRAD_REL = 1e-4
+# bf16 gradients against autograd of the plain version: B3's forward bf16
+# bound (ATTN_TOL) relative to the largest gradient: the kernel's bf16
+# output O (in rowsum(dO o O)) and its rounding of P differ from plain's
+# by a bf16 step
+BF16_GRAD = dict(rtol=2e-2, atol=8e-3)
+GRAD_FLOOR = 1e-5            # of the largest gradient of all (train_parity)
+# the trainer's losses, card against CPU from the same weights and data,
+# step by step: fp32 sums in another order, through 30 Adam steps; with
+# --compress-grads an int8 code that flips on the last bit of a gradient
+# moves it by a whole quantum (1/127 of the leaf's largest), which the
+# next steps carry (on an H100 against the CPU: 9.2e-5 with it, 1.5e-7
+# without)
+TRAJ_REL = {"loss": 1e-4, "compress": 1e-3}
+RESUME_REL = 1e-5            # the reference's test_train_restart_continues
+# the reference's system tests (tests/test_system.py): (arch, extra flags,
+# batch, seq, steps)
+TRAIN_RUNS = {"loss": ("mamba2-130m", [], 4, 32, 30),
+              "compress": ("qwen2-1.5b", ["--compress-grads"], 4, 32, 30)}
+TRAIN_RESUME = ("qwen2-1.5b", 2, 16, 10, 5)    # arch, batch, seq, steps, cut
+# a run long enough to learn: the reference's "the loss falls" compares two
+# batches' losses 30 steps apart, whose spread (~0.12 here) exceeds what 30
+# steps learn; over 200 steps the mean of the last WINDOW losses must lie
+# below that of the first WINDOW by 3 standard errors (arch, batch, seq,
+# steps; reduced qwen2's random logits start above ln(vocab))
+TRAIN_LEARN = ("qwen2-1.5b", 4, 32, 200)
+WINDOW = 10
+TRAIN_ONE_STEP = (2, 16)     # batch, seq of each reduced config's one step
+BWD_FNS = {"FlashAttentionFnBackward": "flash_attention",
+           "SSDIntraFnBackward": "ssd_intra",
+           "MatmulSoftmaxFnBackward": "matmul_blocked"}
+FWD_KERNELS = ("attn_sm90_kernel", "flash_attention_kernel",
+               "ssd_sm90_kernel", "matmul_sm90_kernel",
+               "matmul_splitk_kernel", "matmul_tail_kernel")
+OPT_RANGE = "train:optimizer"
+
+
+def read_backward() -> dict:
+    """Each kernel's backward calls by the route of their forward."""
+    return {name: dict(fn.backward_calls) for name, fn in
+            _kernel_fns().items() if hasattr(fn, "backward_calls")}
+
+
+def _grad_share(got, want, bf16: bool, floor: float = 0.0) -> tuple:
+    """(largest abs error, share of the gate used): fp32 within GRAD_REL
+    of the largest |want| plus ``floor``; bf16 within BF16_GRAD's atol of
+    it plus rtol of each |want|."""
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise RuntimeError("non-finite gradient")
+    diff = (g - w).abs()
+    scale = float(w.abs().max()) or 1.0
+    bound = (BF16_GRAD["atol"] * scale + BF16_GRAD["rtol"] * w.abs()
+             if bf16 else torch.full_like(w, GRAD_REL * scale + floor))
+    return float(diff.max()), float((diff / bound).max())
+
+
+def _bwd_check(kernel: str, name: str, fn, plain, inputs, dout, bf16: bool,
+               fwd_tol: dict, device, iters: int = 5) -> dict:
+    """The output of ``fn`` (the kernel through its autograd Function)
+    against ``plain``'s within ``fwd_tol`` (the kernel's forward tolerance,
+    as its ``phase_lm_*`` check holds it), then the gradients of both on
+    the same ``inputs`` under ``dout``, held to ``_grad_share``; the
+    Function's backward alone timed by CUDA events (``bwd_ms``) beside
+    plain's (``plain_bwd_ms``).  ``route`` is the route of the forward."""
+    on_card = torch.device(device).type == "cuda"
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    calls0 = read_backward()[kernel]
+    out = fn(*leaves)
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    calls = {r: n - calls0[r] for r, n in read_backward()[kernel].items()}
+    ref_leaves = [t.detach().requires_grad_() for t in inputs]
+    ref_out = plain(*ref_leaves)
+    want = torch.autograd.grad(ref_out, ref_leaves, dout, retain_graph=True)
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{kernel} {name}: non-finite forward output")
+    o, r = out.detach().float(), ref_out.detach().float()
+    fwd_diff = (o - r).abs()
+    fwd_share = float((fwd_diff / (fwd_tol["atol"]
+                                   + fwd_tol["rtol"] * r.abs())).max())
+    errs = [_grad_share(g, w, bf16) for g, w in zip(got, want)]
+    row = {"phase": "train", "step": "backward_vs_plain", "kernel": kernel,
+           "case": name, "backward_calls": calls,
+           "route": [k for k, n in calls.items() if n],
+           "fwd_max_abs_err": float(fwd_diff.max()),
+           "fwd_gate_share": fwd_share, "fwd_tol": fwd_tol,
+           "max_abs_err": max(e[0] for e in errs),
+           "gate_share": max(e[1] for e in errs),
+           "tol": BF16_GRAD if bf16 else {"rel_to_largest": GRAD_REL}}
+    if on_card:
+        row["bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True), iters)
+        row["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            ref_out, ref_leaves, dout, retain_graph=True), iters)
+    emit(row)
+    if fwd_share > 1.0:
+        raise RuntimeError(f"{kernel} {name}: the forward differs from "
+                           f"plain by {fwd_share:.3g} of {fwd_tol}")
+    if row["gate_share"] > 1.0:
+        raise RuntimeError(f"{kernel} {name}: gradients differ from plain "
+                           f"autograd by {row['gate_share']:.3g} of the "
+                           "gate")
+    if sum(calls.values()) != 1:
+        raise RuntimeError(f"{kernel} {name}: backward calls {calls}")
+    row["route"] = row["route"][0]
+    return row
+
+
+def train_bwd_cases(small: bool = False) -> dict:
+    """B3's five forms (qwen2-1.5b's training shape in bf16; fp32 at head
+    dims 16, 64 and 256: windowed at recurrentgemma's 2,048 window,
+    non-causal, cross with Sk = 1,500 against S = 64), B4 at mamba2-130m's
+    training shape (batch 4 x 2,048 tokens: BC = 32), B2 at arctic-480b's
+    prefill router shape (fp32 and bf16 operands, fp32 probabilities; the
+    fma and sm90 routes) and at the 32 tokens of a reduced config's step
+    (fp32: splitk); with ``small``, a CPU-sized copy of each form."""
+    bf, f32 = torch.bfloat16, torch.float32
+    if small:
+        b3 = [("causal_gqa_bf16", 1, 4, 2, 64, 16, True, 0, bf, None),
+              ("window_d16", 1, 2, 1, 96, 16, True, 32, f32, None),
+              ("noncausal_d16", 1, 2, 2, 40, 16, False, 0, f32, None),
+              ("cross_d16", 2, 2, 2, 8, 16, False, 0, f32, 50)]
+        return {"b3": b3, "b4": [("reduced", 4, 8, 8, 16, 16)],
+                "b2": [("router_f32", 32, 64, 8, f32)]}
+    b3 = [("qwen2_train_bf16", 2, 12, 2, 2048, 128, True, 0, bf, None)]
+    for d in (16, 64, 256):
+        b3 += [(f"window2048_d{d}", 1, 2, 1, 4096, d, True, 2048, f32,
+                None),
+               (f"noncausal_d{d}", 1, 4, 4, 1500, d, False, 0, f32, None),
+               (f"cross1500_d{d}", 2, 4, 4, 64, d, False, 0, f32, 1500)]
+    return {"b3": b3, "b4": [("mamba2_train", 32, 24, 256, 128, 64)],
+            "b2": [(f"router_m2048_{str(dt)[6:]}", 2048, ROUTER_K,
+                    ROUTER_N, dt) for dt in (f32, bf)]
+            + [("router_m32_float32", 32, ROUTER_K, ROUTER_N, f32)]}
+
+
+def train_backward(device, cases: dict) -> dict:
+    """Each kernel's autograd Function against autograd of its plain
+    version on the card (``_bwd_check``); returns the rows by kernel."""
+    from repro_torch.core.epilogue import EpilogueSpec
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.matmul_blocked import matmul_padded
+    from repro_torch.kernels.ssd_chunk import ssd_intra, ssd_intra_plain
+
+    out = {"flash_attention": [], "ssd_intra": [], "matmul_blocked": []}
+    for name, b, hq, hkv, s, d, causal, window, dt, sk in cases["b3"]:
+        q, k, v = attn_inputs(b, hq, hkv, s, d, dt, device, seed=7, sk=sk)
+        do = attn_inputs(b, hq, hq, s, d, dt, device, seed=8)[0]
+        kw = dict(causal=causal, window=window)
+        out["flash_attention"].append(_bwd_check(
+            "flash_attention", name,
+            lambda q, k, v: flash_attention(q, k, v, **kw),
+            lambda q, k, v: flash_attention_plain(q, k, v, **kw),
+            (q, k, v), do, dt == torch.bfloat16, ATTN_TOL[dt], device))
+    for name, bcn, h, q, n, p in cases["b4"]:
+        args = ssd_inputs(bcn, h, q, n, p, device, "slow", seed=7)
+        dy = ssd_inputs(bcn, h, q, n, p, device, "slow", seed=8)[3]
+        # autograd of the plain version: its exp before the mask is finite
+        # at the slow decay (acum_i - acum_j <= 5.1 above the diagonal)
+        out["ssd_intra"].append(_bwd_check(
+            "ssd_intra", name, ssd_intra, ssd_intra_plain, args, dy, False,
+            SSD_TOL, device))
+    for name, m, k, n, dt in cases["b2"]:
+        a, w = mm_inputs(m, k, n, dt, device, True, seed=7)
+        dp = torch.randn((m, n), generator=torch.Generator().manual_seed(8)
+                         ).to(device)
+        spec = EpilogueSpec(softmax=True)
+        out["matmul_blocked"].append(_bwd_check(
+            "matmul_blocked", name,
+            lambda a, w: matmul_padded(a, w, epilogue=spec,
+                                       out_dtype=torch.float32),
+            lambda a, w: torch.softmax(a.float() @ w.float(), dim=-1),
+            (a, w), dp, dt == torch.bfloat16, PROB_TOL, device))
+    return out
+
+
+def train_parity(device, model: str, n_layers: int, batch: int, seq: int,
+                 ref_device="cpu", base=None) -> dict:
+    """``model`` at full width (or ``base``), ``n_layers`` layers, fp32:
+    the same weights (drawn on the CPU) and the same ``SyntheticLMStream``
+    batch on ``device`` and on ``ref_device``; the loss and every gradient
+    leaf (within GRAD_REL of the leaf's largest gradient plus GRAD_FLOOR
+    of the largest of all) agree, and so
+    do the parameters after one AdamW step, within 2 lr (at step 1 the
+    update is ~lr · sign(g), and a gradient near 0 may take either sign)
+    plus 1e-6 of the leaf's largest value."""
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.lm.model import init_params, params_to
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = dataclasses.replace(base or ARCHS[model], n_layers=n_layers,
+                              dtype="float32")
+    params = init_params(cfg, 0, "cpu")
+    data = SyntheticLMStream(DataConfig(batch, seq, cfg.vocab),
+                             cfg).global_batch(0)
+    opt = AdamW(lr=TRAIN_LR)
+    on_card = torch.device(device).type == "cuda"
+    sides = {}
+    for dev in (ref_device, device):
+        p = params_to(params, dev)
+        reset_counts()
+        loss, grads = loss_and_grads(p, cfg, {
+            k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+        counts, bwd = read_counts(), read_backward()
+        new_p, _, om = opt.update(grads, opt.init(p), p)
+        sides[dev] = (loss, grads, new_p, om["grad_norm"], counts, bwd)
+    (rl, rg, rp, rn, _, _), (dl, dg, dp, dn, counts, bwd) = \
+        sides[ref_device], sides[device]
+    grad_errs = []
+    # a leaf whose exact gradient is 0 (qwen2's key bias: the softmax is
+    # blind to a shift common to all keys) holds rounding noise only, of
+    # order 2^-24 sqrt(N) of the larger gradients
+    floor = GRAD_FLOOR * max(float(w.abs().max()) for w in tree_leaves(rg))
+    for (name, w), g in zip(_flatten(rg), tree_leaves(dg)):
+        err, share = _grad_share(g.cpu(), w.cpu(), False, floor)
+        grad_errs.append((share, name, err))
+    param_share = 0.0
+    for p, w in zip(tree_leaves(dp), tree_leaves(rp)):
+        p, w = p.cpu(), w.cpu()
+        bound = 2 * TRAIN_LR + 1e-6 * float(w.abs().max())
+        param_share = max(param_share, float((p - w).abs().max()) / bound)
+    loss_rel = abs(float(dl) / float(rl) - 1)
+    # one forward and one backward a layer (mamba2 recomputes each layer
+    # under remat, launching B4 again); fp32 attention takes B3's fma
+    want = {k: f for k, (f, _) in lm_kernels_of(cfg).items()}
+    want_launch = {k: (2 * f if k == "ssd_intra" and cfg.remat else f)
+                   if on_card else 0 for k, f in want.items()}
+    got_launch = {k: counts[k] for k in want}
+    got_bwd = {k: sum(bwd[k].values()) for k in want}
+    out = {"phase": "train", "step": "parity", "model": cfg.name,
+           "n_layers": n_layers, "batch": batch, "seq": seq,
+           "dtype": "float32", "remat": cfg.remat,
+           "loss": float(dl), "loss_ref": float(rl), "loss_rel": loss_rel,
+           "grad_norm": float(dn), "grad_norm_ref": float(rn),
+           "grad_gate_share": max(grad_errs)[0],
+           "grad_worst_leaf": max(grad_errs)[1],
+           "grad_rel_tol": GRAD_REL, "param_gate_share": param_share,
+           "launches": got_launch, "backward_calls": got_bwd,
+           "b3_routes": b3_routes()}
+    emit(out)
+    if loss_rel > GRAD_REL or max(grad_errs)[0] > 1.0 or param_share > 1.0:
+        raise RuntimeError(f"train parity {cfg.name}: loss rel {loss_rel:.3g}"
+                           f", gradients {max(grad_errs)}, parameters "
+                           f"{param_share:.3g} of their gates")
+    if got_launch != want_launch or got_bwd != want or \
+            (on_card and "flash_attention" in want
+             and b3_routes()["sm90"]):
+        raise RuntimeError(f"train parity {cfg.name}: launches {got_launch}"
+                           f" (expected {want_launch}), backward calls "
+                           f"{got_bwd} (expected {want}), B3 by route "
+                           f"{b3_routes()}")
+    return out
+
+
+class _LabelledOptimizer:
+    """An optimizer whose ``update`` runs inside the profiler range
+    ``OPT_RANGE``, so a trace can tell its kernels apart."""
+
+    def __init__(self, opt):
+        self.opt = opt
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, *args, **kw):
+        with torch.profiler.record_function(OPT_RANGE):
+            return self.opt.update(*args, **kw)
+
+
+def train_split(prof, lead_ids: set, iters: int) -> dict:
+    """The card's ms a step from a trace, split into the forward kernels
+    (B3, B4, B2 by name, the remat recompute's included), the backward
+    Functions (every device op launched inside an autograd node named in
+    ``BWD_FNS``, by node), the optimizer (inside ``OPT_RANGE``) and the
+    rest.  A device op is tied to its launch through the correlation id,
+    and the launch to the range on its thread that holds it.  Also the
+    ten kernels that take the most of the rest."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = []
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        cat = next((f"backward:{k}" for n, k in BWD_FNS.items()
+                    if n in e.name), "optimizer" if e.name == OPT_RANGE
+                   else None)
+        if cat:
+            ranges.append((e.thread, e.time_range.start, e.time_range.end,
+                           cat))
+    calls = {e.id: e for e in events if e.device_type == DeviceType.CPU
+             and e.name.startswith("cu")}
+    split: dict = {}
+    rest: dict = {}
+    for e in events:
+        # the optimizer's range also shows on the device's timeline, as a
+        # span over its kernels: a label, not work
+        if e.device_type != DeviceType.CUDA or e.id in lead_ids \
+                or e.name == OPT_RANGE:
+            continue
+        call = calls.get(e.id)
+        cat = None
+        if call is not None:
+            cat = next((c for t, a, b, c in ranges if t == call.thread
+                        and a <= call.time_range.start <= b), None)
+        if cat is None:
+            cat = ("forward_kernels" if any(k in e.name for k in FWD_KERNELS)
+                   else "rest")
+        ms = e.time_range.elapsed_us() / 1e3
+        split[cat] = split.get(cat, 0.0) + ms
+        if cat == "rest":
+            rest[e.name[:80]] = rest.get(e.name[:80], 0.0) + ms
+    top = sorted(rest.items(), key=lambda kv: -kv[1])[:10]
+    return ({k: v / iters for k, v in sorted(split.items())},
+            [[name, ms / iters] for name, ms in top])
+
+
+def train_full(device, smi: str, model: str, batch: int, seq: int,
+               steps: int = TRAIN_STEPS, trace: int = TRAIN_TRACE,
+               base=None) -> dict:
+    """``make_train_step`` on ``model`` at full width and depth (or
+    ``base``), its own dtype (bf16), random weights from seed 0: one
+    warm-up step, ``steps`` timed steps (host clock, each ending in the
+    loss's read) and ``trace`` steps under the profiler (``_profiled``),
+    each on the next batch of a ``SyntheticLMStream``.  Gates: a finite
+    loss and grad norm every step, and each kernel's launches and backward
+    calls a step: one forward launch a layer (two for B4 under remat: the
+    recompute launches again) and one backward call, B3 on the sm90
+    route.  Prints the step's ms, tokens/s, the card's ms a step split by
+    ``train_split``, the peak memory and ``model_flops`` at the bf16 peak
+    over the card's time."""
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.lm.model import init_params
+    from repro_torch.optim import AdamW
+
+    cfg = base or ARCHS[model]
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device)
+    opt = _LabelledOptimizer(AdamW(lr=TRAIN_LR))
+    st = {"params": params, "opt": opt.init(params), "step": 0}
+    del params
+    step_fn = make_train_step(cfg, opt, False)
+    stream = SyntheticLMStream(DataConfig(batch, seq, cfg.vocab), cfg)
+    n_batches = 1 + steps + 1 + trace
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in stream.global_batch(i).items()}
+               for i in range(n_batches)]
+    setup_s = time.perf_counter() - t0
+    seen = []
+
+    def one():
+        i = st["step"]
+        st["params"], st["opt"], _, loss, gnorm = step_fn(
+            st["params"], st["opt"], None, batches[i % n_batches], 1.0)
+        seen.append((loss, gnorm))
+        st["step"] = i + 1
+
+    def check():
+        for loss, gnorm in seen:
+            if not (math.isfinite(float(loss)) and
+                    math.isfinite(float(gnorm))):
+                raise RuntimeError(f"train {cfg.name}: non-finite loss "
+                                   f"{float(loss)} or grad norm "
+                                   f"{float(gnorm)}")
+
+    one()
+    check()
+    reset_counts()
+    host = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        one()
+        float(seen[-1][0])
+        host.append((time.perf_counter() - t1) * 1e3)
+    counts, bwd = read_counts(), read_backward()
+    routes = b3_routes()
+    check()
+    kernels = lm_kernels_of(cfg)
+    want_l = {k: (2 * f if k == "ssd_intra" and cfg.remat else f) * steps
+              if on_card else 0 for k, (f, _) in kernels.items()}
+    got_l = {k: counts[k] for k in kernels}
+    want_b = {k: f * steps for k, (f, _) in kernels.items()}
+    got_b = {k: sum(bwd[k].values()) for k in kernels}
+    out = {"phase": "train", "step": "full", "model": cfg.name, "card": smi,
+           "dtype": cfg.dtype, "remat": cfg.remat, "batch": batch,
+           "seq": seq, "n_layers": cfg.n_layers, "steps": steps,
+           "setup_s": setup_s, "launches_per_step":
+           {k: v / steps for k, v in got_l.items()},
+           "backward_calls_per_step": {k: v / steps for k, v in
+                                       got_b.items()},
+           "b3_routes": routes, "backward_by_route": bwd,
+           "step_ms_host": host,
+           "step_ms_host_median": statistics.median(host),
+           "tokens_per_s": batch * seq / statistics.median(host) * 1e3,
+           "loss": [float(x) for x, _ in seen],
+           "grad_norm": [float(g) for _, g in seen]}
+    if got_l != want_l or got_b != want_b or (
+            on_card and "flash_attention" in kernels and
+            routes["sm90"] != want_l["flash_attention"]):
+        raise RuntimeError(f"train {cfg.name}: launches {got_l} (expected "
+                           f"{want_l}), backward calls {got_b} (expected "
+                           f"{want_b}), B3 by route {routes}")
+    flops = model_flops(cfg, "train", batch, seq)
+    out["model_flops"] = flops
+    if on_card:
+        prof, wall_ms, _, gaps = _profiled(one, trace)
+        check()
+        split, rest_top = train_split(prof, gaps["lead_ids"], trace)
+        dev_ms = sum(split.values())
+        out.update(device_ms=dev_ms, trace_wall_ms=wall_ms,
+                   idle_share=1 - dev_ms / wall_ms, device_split_ms=split,
+                   rest_top_ms=rest_top,
+                   roofline_share=flops / h100()["PEAK_FLOPS"] / (dev_ms /
+                                                                 1e3),
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated(
+                       device))
+    else:
+        out.update(device_ms="not measured", roofline_share="not measured",
+                   peak_allocated_bytes="not measured")
+    emit(out)
+    st.clear()
+    batches.clear()
+    return out
+
+
+@contextlib.contextmanager
+def store_recording():
+    """Host copies of every tree ``CheckpointStore`` saves (by directory
+    and step) and restores (in order) while the block runs; the methods
+    are wrapped, not replaced."""
+    from repro_torch.checkpoint import store as S
+
+    saved, restored = {}, []
+    real_save, real_restore = S.CheckpointStore.save, \
+        S.CheckpointStore.restore
+
+    def save(self, step, tree, *a, **kw):
+        saved[(str(self.dir), step)] = [(p, t.detach().cpu().clone())
+                                        for p, t in S._flatten(tree)]
+        return real_save(self, step, tree, *a, **kw)
+
+    def restore(self, *a, **kw):
+        out = real_restore(self, *a, **kw)
+        restored.append((str(self.dir), out[1],
+                         [(p, t.detach().cpu()) for p, t in
+                          S._flatten(out[0])]))
+        return out
+
+    S.CheckpointStore.save, S.CheckpointStore.restore = save, restore
+    try:
+        yield saved, restored
+    finally:
+        S.CheckpointStore.save, S.CheckpointStore.restore = real_save, \
+            real_restore
+
+
+def train_main_run(argv: list, device, ckpt: Path) -> dict:
+    """``repro_torch.launch.train.main`` in this process on ``device``:
+    its losses, stdout, seconds, and the launches and backward calls of
+    the run (counts reset before, read after)."""
+    from repro_torch.launch.train import main as train_main
+
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = train_main([*argv, "--device", str(torch.device(device)
+                                                     .type),
+                             "--ckpt-dir", str(ckpt), "--log-every",
+                             "100"])
+    return {"losses": losses, "stdout": buf.getvalue(),
+            "seconds": time.perf_counter() - t0, "launches": read_counts(),
+            "b3_routes": b3_routes(), "b2_routes": b2_routes(),
+            "backward": read_backward()}
+
+
+def train_main_runs(device, smi: str, tmp: Path, ref_device="cpu") -> dict:
+    """``launch.train.main`` on the card: the reference's system tests'
+    runs (30 steps of reduced mamba2-130m; --compress-grads on reduced
+    qwen2-1.5b) each against a run on ``ref_device`` from the same
+    weights and data, every step's loss within TRAJ_REL (the CPU tests
+    hold the CPU's run to the reference's); TRAIN_LEARN's run, whose loss
+    must fall (its last WINDOW losses' mean 3 standard errors below its
+    first WINDOW's); resume: 10 straight steps
+    against 5 and ``--resume`` 5, the restored state bit-identical to the
+    saved one and the last loss within RESUME_REL; then one step of each
+    of the ten reduced configs, each kernel its family launches once
+    forward and once backward a layer."""
+    from repro_torch.configs import ARCHS, reduced
+
+    on_card = torch.device(device).type == "cuda"
+    out = {"phase": "train", "step": "main", "card": smi}
+    for key, (arch, extra, b, s, n) in TRAIN_RUNS.items():
+        args = ["--arch", arch, "--steps", str(n), "--batch", str(b),
+                "--seq", str(s), *extra]
+        dut = train_main_run(args, device, tmp / key / "dut")
+        ref = train_main_run(args, ref_device, tmp / key / "ref")
+        d, r = np.array(dut["losses"]), np.array(ref["losses"])
+        rel = float(np.abs(d / r - 1).max())
+        out[key] = {"args": args, "losses_first_last": [float(d[0]),
+                                                          float(d[-1])],
+                    "falls": bool(d[-1] < d[0]), "ref_first_last":
+                    [float(r[0]), float(r[-1])], "max_loss_rel_vs_ref": rel,
+                    "seconds": dut["seconds"], "ref_seconds":
+                    ref["seconds"], "b3_routes": dut["b3_routes"],
+                    "b2_routes": dut["b2_routes"],
+                    "backward": dut["backward"]}
+        out[key]["tol_rel"] = TRAJ_REL[key]
+        if not np.isfinite(d).all() or rel > TRAJ_REL[key]:
+            raise RuntimeError(f"train main {key}: losses differ from "
+                               f"{ref_device}'s by {rel:.3g} (tolerance "
+                               f"{TRAJ_REL[key]})")
+    arch, b, s, n = TRAIN_LEARN
+    args = ["--arch", arch, "--steps", str(n), "--batch", str(b), "--seq",
+            str(s)]
+    losses = np.array(train_main_run(args, device, tmp / "learn")["losses"])
+    first, last = losses[:WINDOW], losses[-WINDOW:]
+    se = math.sqrt((first.var(ddof=1) + last.var(ddof=1)) / WINDOW)
+    drop = float(first.mean() - last.mean())
+    out["learns"] = {"args": args, "first_mean": float(first.mean()),
+                     "last_mean": float(last.mean()), "drop": drop,
+                     "standard_error": se, "window": WINDOW}
+    if not drop > 3 * se:
+        raise RuntimeError(f"train main learns: {out['learns']}")
+    arch, b, s, n, cut = TRAIN_RESUME
+    args = ["--arch", arch, "--batch", str(b), "--seq", str(s),
+            "--ckpt-every", str(cut)]
+    with store_recording() as (saved, restored):
+        full = train_main_run(args + ["--steps", str(n)], device,
+                              tmp / "resume_a")
+        train_main_run(args + ["--steps", str(cut)], device, tmp / "resume_b")
+        resumed = train_main_run(args + ["--steps", str(n), "--resume"],
+                                 device, tmp / "resume_b")
+    where, step, leaves = restored[-1]
+    want = saved[(where, step)]
+    same = step == cut and [p for p, _ in leaves] == [p for p, _ in want] \
+        and all(a.dtype == b.dtype and torch.equal(a, b)
+                for (_, a), (_, b) in zip(leaves, want))
+    rel = abs(resumed["losses"][-1] / full["losses"][-1] - 1)
+    out["resume"] = {"args": args, "restored_step": step,
+                     "restored_leaves": len(leaves),
+                     "restored_bit_identical": same,
+                     "resumed_steps": len(resumed["losses"]),
+                     "last_loss": resumed["losses"][-1],
+                     "straight_last_loss": full["losses"][-1],
+                     "last_loss_rel": rel,
+                     "resumed_line": "resumed from step 5" in
+                     resumed["stdout"]}
+    if not same or rel > RESUME_REL or len(resumed["losses"]) != n - cut:
+        raise RuntimeError(f"train resume: {out['resume']}")
+    b, s = TRAIN_ONE_STEP
+    rows = []
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        run = train_main_run(["--arch", name, "--steps", "1", "--batch",
+                              str(b), "--seq", str(s)], device,
+                             tmp / "one" / name)
+        kernels = lm_kernels_of(cfg)
+        want_l = {k: f if on_card else 0 for k, (f, _) in kernels.items()}
+        got_l = {k: run["launches"][k] for k in kernels}
+        got_b = {k: sum(run["backward"][k].values()) for k in kernels}
+        want_b = {k: f for k, (f, _) in kernels.items()}
+        others = {k: v for k, v in run["launches"].items()
+                  if k not in kernels and v}
+        # fp32 at 32 tokens: B3 on fma, the router on B2's splitk
+        bad_route = on_card and (run["b3_routes"]["sm90"] or any(
+            n for r, n in run["b2_routes"].items() if r != "splitk"))
+        rows.append({"arch": name, "family": cfg.family, "launches": got_l,
+                     "backward_calls": got_b,
+                     "backward_by_route": {k: run["backward"][k]
+                                           for k in kernels},
+                     "b3_routes": run["b3_routes"],
+                     "b2_routes": run["b2_routes"],
+                     "loss": run["losses"][0], "seconds": run["seconds"]})
+        if got_l != want_l or got_b != want_b or others or bad_route or \
+                not math.isfinite(run["losses"][0]):
+            raise RuntimeError(f"train one step {name}: {rows[-1]} "
+                               f"(expected launches {want_l}, backward "
+                               f"calls {want_b})")
+    out["one_step"] = rows
+    emit(out)
+    return out
+
+
+def phase_train(device, smi: str, full=TRAIN_FULL, parity=TRAIN_PARITY,
+                small: bool = False) -> dict:
+    """A10a on the card: each kernel's backward against plain
+    (``train_backward``), fp32 parity against the CPU (``train_parity``:
+    each model of ``full`` at its width, cut to ``parity``'s layers), the
+    steps at full width and depth in the model's own type (``train_full``)
+    and the command line (``train_main_runs``).  ``full`` maps a model
+    name (of ``ARCHS``) or a config to its (batch, seq); ``small`` takes
+    the CPU-sized backward cases."""
+    t0 = time.perf_counter()
+    out = {"backward": train_backward(device, train_bwd_cases(small))}
+    models = [(getattr(m, "name", m), None if isinstance(m, str) else m,
+               bs) for m, bs in full.items()]
+    out["parity"] = [train_parity(device, name, base=base, **parity)
+                     for name, base, _ in models]
+    _release()
+    out["full"] = []
+    for name, base, (b, s) in models:
+        out["full"].append(train_full(device, smi, name, b, s, base=base))
+        _release()
+    tmp = Path(tempfile.mkdtemp(prefix=".train-", dir=ROOT))
+    try:
+        out["main"] = train_main_runs(device, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "train", "step": "total", "card": smi,
+          "seconds": out["seconds"]})
+    return out
+
+
 def _leaves(tree):
     """The tensors of a parameter tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -4760,6 +5428,19 @@ def launch_only(device, smi: str) -> int:
     return 0
 
 
+def train_only(device, smi: str) -> int:
+    """The train phase alone (after the parallel build), its lines also in
+    ``chiprun_out/chip_smoke_train.json``."""
+    phase_build()
+    out = phase_train(device, smi)
+    memory_line("train", device)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_train.json").write_text(
+        json.dumps(out, indent=1, default=float))
+    return 0
+
+
 def a8_only(device, smi: str) -> int:
     """The A8 families alone: B3 at their shapes against its plain version
     and timed (``A8_ATTN``), then ``phase_a8``; each kernel builds at its
@@ -4827,6 +5508,8 @@ def main() -> int:
         return a8_only(device, smi)
     if sys.argv[1:] == ["--launch-only"]:
         return launch_only(device, smi)
+    if sys.argv[1:] == ["--train-only"]:
+        return train_only(device, smi)
     if sys.argv[1:2] == ["--b3-times"] and len(sys.argv) <= 3:
         return b3_times(device, smi, Path(sys.argv[2]).resolve()
                         if len(sys.argv) == 3 else ROOT)
@@ -4900,6 +5583,8 @@ def main() -> int:
         run.pop("big_session", None)
     gc.collect()
     torch.cuda.empty_cache()
+    train = phase_train(device, smi)
+    memory.append(memory_line("train", device))
     lm_runs[ARCTIC] = phase_lm_main(device, arctic_config())
     memory.append(memory_line(f"lm_main {ARCTIC}", device))
     lm_e2e.append(phase_lm_e2e(lm_runs[ARCTIC], device))
@@ -5009,6 +5694,29 @@ def main() -> int:
                     ["launches_per_request"]],
                 serving_stream_launches=serving["b4_stream_launches"],
                 launch_stream_launches=launch["lm"]["b4_launches"])
+    # training (the train phase): each kernel's backward against plain at
+    # the training shapes with its ms a call (CUDA events), and its
+    # launches and backward calls a full-width step and a reduced one; a
+    # B2 row only with the cases whose forward took its route
+    for (_, fn, route, *_), row in zip(LM_KERNEL_ROWS, kernels[1:]):
+        row["train"] = {
+            "backward_vs_plain": [
+                {k: r.get(k) for k in ("case", "route", "fwd_max_abs_err",
+                                       "fwd_gate_share", "max_abs_err",
+                                       "gate_share", "bwd_ms",
+                                       "plain_bwd_ms")}
+                for r in train["backward"][fn]
+                if route is None or r["route"] == route],
+            "full_width_per_step": {
+                r["model"]: {"launches": r["launches_per_step"][fn],
+                             "backward_calls":
+                             r["backward_calls_per_step"][fn]}
+                for r in train["full"] if fn in r["launches_per_step"]},
+            "reduced_one_step_backward_calls": {
+                r["arch"]: r["backward_by_route"][fn][route] if route
+                else r["backward_calls"][fn]
+                for r in train["main"]["one_step"]
+                if fn in r["backward_calls"]}}
     lm_main = [{k: v for k, v in r.items()
                 if k not in ("session", "big_session")}
                for r in lm_runs.values()]
@@ -5021,7 +5729,7 @@ def main() -> int:
               "tuning": tuning["lines"], "artifacts": artifacts,
               "serving": {k: serving[k] for k in (
                   "load", "chaos", "trace", "stream", "startup", "fleet")},
-              "launch": launch,
+              "launch": launch, "train": train,
               "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -14,7 +14,7 @@ device); ``model_flops`` and ``model_bytes`` are the algorithmic minimum
 from the config alone.  The reference also parses collective bytes out of
 XLA's optimized HLO text (``parse_collective_bytes``, ``count_ops``); the
 port produces no HLO, and its collectives come with the multi-chip slice
-(ROADMAP A10).
+(ROADMAP A10b).
 """
 from __future__ import annotations
 

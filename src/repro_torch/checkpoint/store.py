@@ -20,7 +20,7 @@ Properties:
   ``torch.bfloat16`` tensor: bit for bit, never through float32.
 * Leaves restore as CPU tensors; ``restore(..., device=)`` moves them.
   Restoring onto a mesh (the reference's ``shardings``) waits for the
-  multi-chip slice (ROADMAP A10).
+  multi-chip slice (ROADMAP A10b).
 """
 from __future__ import annotations
 
@@ -146,7 +146,9 @@ def _to_host(leaf, copy: bool) -> Tuple[np.ndarray, str]:
         arr = t.numpy()
     else:
         arr = np.array(leaf, copy=copy)
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-d array 1-d; a 0-d leaf (an optimizer's
+    # step) keeps its shape (), as the reference writes it
+    arr = np.ascontiguousarray(arr) if arr.ndim else np.asarray(arr)
     return arr, str(arr.dtype)
 
 
@@ -258,11 +260,11 @@ class CheckpointStore:
                 shardings: Any = None, device=None) -> Tuple[Any, int, Dict]:
         """Load into the structure of ``template``, on ``device`` (default:
         the CPU).  ``shardings`` — re-laying leaves onto a mesh — waits
-        for the multi-chip slice (ROADMAP A10)."""
+        for the multi-chip slice (ROADMAP A10b)."""
         if shardings is not None:
             raise NotImplementedError(
                 "restoring onto shardings waits for the multi-chip slice "
-                "(ROADMAP A10); pass device= instead")
+                "(ROADMAP A10b); pass device= instead")
         leaves, step, meta = self.restore_flat(step)
         if device is not None:
             leaves = {p: t.to(device) for p, t in leaves.items()}

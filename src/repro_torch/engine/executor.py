@@ -22,7 +22,7 @@ here, because the reference's whole-graph ``jax.jit`` has no counterpart
 until CUDA-graph capture lands.  ``replica(device)`` is the same program
 with its bound parameters on another device, the executable a serving
 worker on that device runs.  Batch-sharded execution (``devices > 1``)
-waits for the multi-chip slice (ROADMAP A10).
+waits for the multi-chip slice (ROADMAP A10b).
 """
 from __future__ import annotations
 

@@ -61,7 +61,7 @@ chain (``register_migration``: v1 -> v5); one whose checksums migrated to
 ``None`` loads with one :class:`UnverifiedArtifactWarning`, and a re-save
 backfills them.  A future version is refused.  Sessions batch-sharded over
 several devices (the manifest's ``"devices"``) wait for the multi-chip
-slice (ROADMAP A10).
+slice (ROADMAP A10b).
 """
 from __future__ import annotations
 
@@ -275,7 +275,7 @@ def refuse_devices(devices) -> None:
     if devices not in (None, 1):
         raise ArtifactError(
             f"devices={devices}: batch-sharded sessions wait for the "
-            "multi-chip slice (ROADMAP A10); the port loads devices=1 "
+            "multi-chip slice (ROADMAP A10b); the port loads devices=1 "
             "artifacts")
 
 
@@ -685,7 +685,7 @@ class InferenceSession:
         future versions are refused.  If the artifact packs its source,
         the loaded session is not frozen and may specialize unseen batch
         sizes on the H100 machine model of its engine.  ``devices`` other
-        than 1 waits for the multi-chip slice (ROADMAP A10)."""
+        than 1 waits for the multi-chip slice (ROADMAP A10b)."""
         path = Path(path)
         refuse_devices(devices)
         manifest = read_manifest(path)

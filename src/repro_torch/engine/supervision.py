@@ -119,6 +119,11 @@ class StragglerMitigator:
         return [h for h, s in self.strikes.items()
                 if s >= self.policy.evict_after]
 
+    def batch_weights(self) -> Dict[int, float]:
+        """1/avg-time weights (proportionally fewer rows to slow hosts),
+        the weights of ``runtime.rebalanced_batch_split``."""
+        return {h: 1.0 / max(self._avg(h), 1e-6) for h in self.history}
+
     def drop(self, host: int) -> None:
         self.history.pop(host, None)
         self.strikes.pop(host, None)

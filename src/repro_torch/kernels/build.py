@@ -8,8 +8,10 @@ of the source and of every header it includes, and the flags, and loaded
 with ``ctypes``.  Nothing is built when a module is imported.
 
 Each wrapper counts its launches in attributes of its function
-(``launches``, ``launches_by_route``) through :func:`count_launch`, which
-adds under one lock: serving workers launch from several threads at once.
+(``launches``, ``launches_by_route``) through :func:`count_launch`, and
+the backwards of its autograd Function (``backward_calls``) through
+:func:`count_backward`; both add under one lock: serving workers launch
+from several threads at once.
 """
 from __future__ import annotations
 
@@ -130,3 +132,10 @@ def count_launch(fn, route=None) -> None:
         fn.launches += 1
         if route is not None:
             fn.launches_by_route[route] += 1
+
+
+def count_backward(fn, route: str) -> None:
+    """One backward of ``fn``'s autograd Function whose forward took
+    ``route``: add one to ``fn.backward_calls[route]``, atomically."""
+    with _count_lock:
+        fn.backward_calls[route] += 1

@@ -313,7 +313,18 @@ def conv2d_nchwc(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
                  out_buf: Optional[torch.Tensor] = None, *,
                  stride: int = 1,
                  epilogue: Optional[EpilogueSpec] = None) -> torch.Tensor:
-    """Blocked conv + fused epilogue.  ``x_blocked`` is already padded."""
+    """Blocked conv + fused epilogue.  ``x_blocked`` is already padded.
+    B1 has no backward: where autograd would record (grad enabled and an
+    input requiring it) this raises rather than return an output without
+    a gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x_blocked, w_blocked, scale, shift, residual,
+                      out_buf)):
+        raise NotImplementedError(
+            "conv2d_nchwc (B1) has no backward: run it under "
+            "torch.no_grad() or torch.inference_mode(), or with inputs "
+            "that do not require grad")
     spec = epilogue or IDENTITY
     if spec.has_matmul_tail:
         raise ValueError("the conv kernel has no matmul-tail stages")

@@ -26,6 +26,16 @@ does about it.  A CPU or meta tensor takes the plain version; a CUDA tensor
 launches its route's kernel or raises.  ``flash_attention.launches``
 counts every launch, ``flash_attention.launches_by_route`` those of each
 route.
+
+Training: where autograd records (grad enabled and q, k or v requiring
+it), ``flash_attention`` runs through ``FlashAttentionFn``, on every
+device: its forward is the kernel on a CUDA tensor and the plain version on
+the CPU, its backward ``flash_attention_backward``, the analytic gradient in
+torch ops (fp32 inside), by chunks of query rows, from the saved q, k, v
+and output.  The reference has no backward kernel either: its gradient is
+XLA's autodiff of ``flash_attention_xla``.
+``flash_attention.backward_calls`` counts the backwards by the route of
+their forward (``"plain"`` off the card).
 """
 from __future__ import annotations
 
@@ -63,7 +73,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_chunk: int = 1024) -> torch.Tensor:
     """The reference's online-softmax loop (``flash_attention_xla``) in
     torch: the same chunking, padding, masks and NEG_INF, every kv chunk
-    visited in ascending order.  Memory O(S * chunk), not O(S^2)."""
+    visited in ascending order.  Memory O(S * chunk), not O(S^2).  fp32
+inside (fp64 for fp64 inputs, as ``gradcheck`` needs)."""
     b, hq, s, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -80,18 +91,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ks = kp.reshape(b, hkv, nk, ckv, d)
     vs = vp.reshape(b, hkv, nk, ckv, d)
     dev = q.device
+    acc_t = torch.promote_types(q.dtype, torch.float32)   # fp32, or fp64
     outs = []
     for qi in range(nq):
-        qblk = qs[:, :, :, qi].float()                 # (B, Hkv, G, cq, D)
+        qblk = qs[:, :, :, qi].to(acc_t)                 # (B, Hkv, G, cq, D)
         q_pos = qi * cq + torch.arange(cq, device=dev)
-        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32,
+        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=acc_t,
                        device=dev)
-        l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, g, cq, d), dtype=torch.float32,
-                          device=dev)
+        l = torch.zeros((b, hkv, g, cq), dtype=acc_t, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, d), dtype=acc_t, device=dev)
         for ki in range(nk):
-            kblk = ks[:, :, ki].float()
-            vblk = vs[:, :, ki].float()
+            kblk = ks[:, :, ki].to(acc_t)
+            vblk = vs[:, :, ki].to(acc_t)
             k_pos = ki * ckv + torch.arange(ckv, device=dev)
             logits = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kblk) * scale
             mask = (k_pos < sk)[None, :]
@@ -133,6 +144,81 @@ def sm90_smem_bytes(d: int) -> int:
     return int(fn(d))
 
 
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, q_chunk: int = 1024):
+    """The gradients (dq, dk, dv) of ``flash_attention``'s output ``o``
+    under the upstream gradient ``do``, in q's, k's and v's types.  For
+    each chunk of ``q_chunk`` query rows, in fp32: the masked scores and P
+    = softmax with the forward's NEG_INF and 1e-30 clamp, dV += Pᵀ dO,
+    dP = dO Vᵀ, dS = P ∘ (dP − rowsum(dO ∘ O)), dQ = dS K / √D and
+    dK += dSᵀ Q / √D, each GQA group's Hq / Hkv heads summed into their kv
+    head.  Keys that no row of the chunk sees (past its causal end, before
+    its window) are left out: their P is exactly 0."""
+    b, hq, s, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    acc_t = torch.promote_types(q.dtype, torch.float32)   # fp32, or fp64
+    kf, vf = k.to(acc_t), v.to(acc_t)
+    dk = torch.zeros((b, hkv, sk, d), dtype=acc_t, device=dev)
+    dv = torch.zeros_like(dk)
+    dq = torch.empty((b, hq, s, d), dtype=acc_t, device=dev)
+    cq = max(1, min(q_chunk, s))
+    for q0 in range(0, s, cq):
+        q1 = min(q0 + cq, s)
+        n = q1 - q0
+        k0 = max(0, q0 - window + 1) if window > 0 else 0
+        k1 = min(sk, q1) if causal else sk
+        qb = q[:, :, q0:q1].to(acc_t).reshape(b, hkv, g, n, d)
+        ob = o[:, :, q0:q1].to(acc_t).reshape(b, hkv, g, n, d)
+        dob = do[:, :, q0:q1].to(acc_t).reshape(b, hkv, g, n, d)
+        kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        q_pos = torch.arange(q0, q1, device=dev)[:, None]
+        k_pos = torch.arange(k0, k1, device=dev)[None, :]
+        mask = torch.ones((n, k1 - k0), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        if window > 0:
+            mask = mask & (q_pos - k_pos < window)
+        sc = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * scale
+        sc = torch.where(mask, sc, NEG_INF)
+        p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+        p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+        dv[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", p, dob)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dob, vb)
+        ds = p * (dp - (dob * ob).sum(dim=-1, keepdim=True))
+        dq[:, :, q0:q1] = (torch.einsum("bhgqk,bhkd->bhgqd", ds, kb)
+                           * scale).reshape(b, hq, n, d)
+        dk[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward of ``_forward`` (the
+    kernel on a CUDA tensor, the plain version on the CPU), the backward of
+    ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        out, route = _forward(q, k, v, causal, window, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, window, q_chunk, route)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_chunk, route = ctx.args
+        dq, dk, dv = flash_attention_backward(q, k, v, out, do,
+                                              causal=causal, window=window,
+                                              q_chunk=q_chunk)
+        _build.count_backward(flash_attention, route)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_chunk: int = 1024, kv_chunk: int = 1024
@@ -140,10 +226,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, S, D); k, v: (B, Hkv, Sk, D); Hq % Hkv == 0.  The
     signature of the reference's ``flash_attention_xla``: ``q_chunk`` and
     ``kv_chunk`` are the plain version's chunks and the kernel's tiles are
-    its own."""
+    its own.  Where autograd records, through ``FlashAttentionFn``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_chunk,
+                                      kv_chunk)
+    return _forward(q, k, v, causal, window, q_chunk, kv_chunk)[0]
+
+
+def _forward(q, k, v, causal, window, q_chunk, kv_chunk):
+    """The forward and its route: the plain version (``"plain"``) on a CPU
+    or meta tensor, else the route's kernel."""
     if q.device.type in _build.PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                     q_chunk=q_chunk,
+                                     kv_chunk=kv_chunk), "plain"
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -176,7 +273,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"a window needs Sk >= S; got Sk={sk}, S={s}")
     out = torch.empty_like(q)
     if s == 0 or b == 0:
-        return out
+        return out, route
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launch_fn(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -187,8 +284,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err} (a cudaError_t; 10000 + a CUresult "
                            "of the tensor-map encoder; 20000: no encoder)")
     _build.count_launch(flash_attention, route)
-    return out
+    return out, route
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"sm90": 0, "fma": 0}
+flash_attention.backward_calls = {"sm90": 0, "fma": 0, "plain": 0}

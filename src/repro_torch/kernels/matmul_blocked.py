@@ -30,6 +30,17 @@ epilogue on each accumulator block at ``(i*bm, j*bn)``, and a softmax only
 over a row held in one N-block.  A CPU or meta tensor takes it; a CUDA tensor
 launches its route's kernel or raises.  ``matmul_blocked.launches`` counts
 every launch, ``matmul_blocked.launches_by_route`` those of each route.
+
+Training: where autograd records (grad enabled and ``a`` or ``b``
+requiring it), ``matmul_padded`` with the tail that training uses (an
+optional scale, then the row softmax: the MoE router's) runs through
+``MatmulSoftmaxFn`` on every device, its forward the kernel on a CUDA
+tensor and the plain version on the CPU, its backward
+``matmul_softmax_backward`` in fp32 torch ops.  Any other tail (none, a
+scale alone, the causal mask, ReLU), and ``matmul_blocked`` called
+directly, raise ``NotImplementedError`` there rather than return an
+output without a gradient.  ``matmul_blocked.backward_calls`` counts the backwards by the
+route of their forward (``"plain"`` off the card).
 """
 from __future__ import annotations
 
@@ -96,7 +107,8 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
                  n_valid: Optional[int] = None) -> torch.Tensor:
     """The reference's ``matmul_pallas`` as torch ops: the fp32 product
     summed over k blocks of ``bk`` in ascending order, then the epilogue on
-    each (bm, bn) accumulator block.  A softmax needs ``bn == N``."""
+    each (bm, bn) accumulator block.  A softmax needs ``bn == N``.  fp64
+    operands sum in fp64 (``gradcheck``)."""
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
@@ -108,9 +120,10 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(
             f"fused softmax needs the full row in one N-block: bn={s.bn} "
             f"!= n={n} (use matmul_padded, which widens bn to cover N)")
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    acc_t = torch.promote_types(a.dtype, torch.float32)   # fp32, or fp64
+    acc = torch.zeros((m, n), dtype=acc_t, device=a.device)
     for k0 in range(0, k, s.bk):
-        acc += a[:, k0:k0 + s.bk].float() @ b[k0:k0 + s.bk].float()
+        acc += a[:, k0:k0 + s.bk].to(acc_t) @ b[k0:k0 + s.bk].to(acc_t)
     if epilogue != IDENTITY:
         for i in range(0, m, s.bm):
             for j in range(0, n, s.bn):
@@ -155,6 +168,56 @@ def sm90_smem_bytes(n: int) -> int:
                             [ctypes.c_int])(n))
 
 
+def matmul_softmax_backward(a: torch.Tensor, b: torch.Tensor,
+                            p: torch.Tensor, dp: torch.Tensor,
+                            scale: Optional[float]):
+    """The gradients (da, db) of ``P = softmax(scale · a @ b)`` (rows)
+    under the upstream gradient ``dp``, in a's and b's types: dZ = scale ·
+    P ∘ (dP − rowsum(dP ∘ P)), da = dZ bᵀ, db = aᵀ dZ, fp32 inside (fp64
+    for fp64 operands)."""
+    acc_t = torch.promote_types(a.dtype, torch.float32)   # fp32, or fp64
+    pf, dpf = p.to(acc_t), dp.to(acc_t)
+    dz = pf * (dpf - (dpf * pf).sum(dim=-1, keepdim=True))
+    if scale is not None:
+        dz = dz * scale
+    return ((dz @ b.to(acc_t).t()).to(a.dtype),
+            (a.to(acc_t).t() @ dz).to(b.dtype))
+
+
+class MatmulSoftmaxFn(torch.autograd.Function):
+    """``matmul_padded``'s scale-then-softmax tail under autograd: the
+    forward of ``matmul_padded`` (run with autograd off), the backward of
+    ``matmul_softmax_backward``."""
+
+    @staticmethod
+    def forward(ctx, a, b, schedule, epilogue, out_dtype):
+        out = matmul_padded(a, b, schedule=schedule, epilogue=epilogue,
+                            out_dtype=out_dtype)
+        ctx.save_for_backward(a, b, out)
+        ctx.scale = epilogue.scale
+        ctx.route = (_route(a.shape[0], a.shape[1], b.shape[1], a.dtype)
+                     if a.device.type == "cuda" else "plain")
+        return out
+
+    @staticmethod
+    def backward(ctx, dp):
+        a, b, p = ctx.saved_tensors
+        da, db = matmul_softmax_backward(a, b, p, dp, ctx.scale)
+        _build.count_backward(matmul_blocked, ctx.route)
+        return da, db, None, None, None
+
+
+def _records(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether autograd records a matmul of ``a`` and ``b``."""
+    return torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+
+
+def _no_backward(epilogue: EpilogueSpec, n_valid: Optional[int]):
+    raise NotImplementedError(
+        f"no backward for the matmul tail {epilogue} (n_valid={n_valid}): "
+        "training takes the scale-then-softmax tail of matmul_padded only")
+
+
 def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *,
                    schedule: MatmulSchedule = MatmulSchedule(),
                    out_dtype: Optional[torch.dtype] = None,
@@ -168,6 +231,8 @@ def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *,
     ``a``'s type, and 16-byte aligned for the splitk and sm90 routes.
     ``n_valid`` (softmax only) marks the first ``n_valid`` columns as real
     when N carries padding."""
+    if _records(a, b):
+        _no_backward(epilogue, n_valid)
     if a.device.type in _build.PLAIN_DEVICES:
         return matmul_plain(a, b, schedule=schedule, out_dtype=out_dtype,
                             epilogue=epilogue, n_valid=n_valid)
@@ -234,6 +299,8 @@ def matmul_blocked(a: torch.Tensor, b: torch.Tensor, *,
 
 matmul_blocked.launches = 0
 matmul_blocked.launches_by_route = {"splitk": 0, "sm90": 0, "fma": 0}
+matmul_blocked.backward_calls = {"splitk": 0, "sm90": 0, "fma": 0,
+                                 "plain": 0}
 
 
 def pad_operands(a: torch.Tensor, b: torch.Tensor, schedule: MatmulSchedule,
@@ -262,7 +329,12 @@ def matmul_padded(a: torch.Tensor, b: torch.Tensor, *,
     tensor it pads as the reference does (``pad_operands``), runs the plain
     version and slices back.  On a CUDA tensor the kernel takes the shape
     as it is, so nothing is padded: its result equals the padded one, whose
-    extra columns the ``n_valid`` mask keeps out of the softmax."""
+    extra columns the ``n_valid`` mask keeps out of the softmax.  Where
+    autograd records, through ``MatmulSoftmaxFn``."""
+    if _records(a, b):
+        if not epilogue.softmax or epilogue.mask != "none":
+            _no_backward(epilogue, None)
+        return MatmulSoftmaxFn.apply(a, b, schedule, epilogue, out_dtype)
     if a.device.type == "cuda":
         return matmul_blocked(a, b, epilogue=epilogue, out_dtype=out_dtype)
     m, n = a.shape[0], b.shape[1]

@@ -16,6 +16,14 @@ launch is cut into blocks.
 
 A CPU or meta tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``ssd_intra.launches`` counts the kernel's launches.
+
+Training: where autograd records (grad enabled and an input requiring
+it), ``ssd_intra`` runs through ``SSDIntraFn`` on every device: its
+forward is the kernel on a CUDA tensor and the plain version on the CPU,
+its backward ``ssd_intra_backward``, the analytic gradient in fp32 torch
+ops (the reference's gradient is XLA's autodiff of its einsum).
+``ssd_intra.backward_calls`` counts the backwards by the route of their
+forward (``"sm90"``, or ``"plain"`` off the card).
 """
 from __future__ import annotations
 
@@ -48,11 +56,56 @@ def ssd_intra_plain(cc: torch.Tensor, bc: torch.Tensor, acum: torch.Tensor,
     scores ``cc @ bc^T``, the lower-triangular decay ``exp(acum_i -
     acum_j)``, then ``(scores * decay) @ xd``, fp32 inside."""
     q = cc.shape[1]
-    scores = cc.float() @ bc.float().transpose(-1, -2)      # (BC, Q, Q)
-    diff = acum.float()[..., :, None] - acum.float()[..., None, :]
+    acc_t = torch.promote_types(xd.dtype, torch.float32)   # fp32, or fp64
+    scores = cc.to(acc_t) @ bc.to(acc_t).transpose(-1, -2)  # (BC, Q, Q)
+    diff = acum.to(acc_t)[..., :, None] - acum.to(acc_t)[..., None, :]
     lower = torch.ones((q, q), dtype=torch.bool, device=cc.device).tril()
     ell = torch.where(lower, torch.exp(diff), 0.0)          # (BC, H, Q, Q)
-    return ((scores[:, None] * ell) @ xd.float()).to(xd.dtype)
+    return ((scores[:, None] * ell) @ xd.to(acc_t)).to(xd.dtype)
+
+
+def ssd_intra_backward(cc: torch.Tensor, bc: torch.Tensor,
+                       acum: torch.Tensor, xd: torch.Tensor,
+                       dy: torch.Tensor):
+    """The gradients (dcc, dbc, dacum, dxd) of ``ssd_intra`` under the
+    upstream gradient ``dy``, in fp32 (fp64 for fp64 inputs).  With
+    S = C Bᵀ, L_h = exp(acum_i − acum_j) for j <= i (the mask applied
+    before the exp, as the reference's ``_segsum`` does: above the
+    diagonal the exp would overflow, and 0 · inf is NaN) and
+    M_h = S ∘ L_h: dX_h = M_hᵀ dY_h, G_h = dY_h X_hᵀ below the diagonal,
+    dS = Σ_h G_h ∘ L_h, dC = dS B, dB = dSᵀ C,
+    d acum_h = rowsum(G_h ∘ M_h) − colsum(G_h ∘ M_h)."""
+    q = cc.shape[1]
+    acc_t = torch.promote_types(xd.dtype, torch.float32)   # fp32, or fp64
+    cf, bf, xf, dyf = (t.to(acc_t) for t in (cc, bc, xd, dy))
+    scores = cf @ bf.transpose(-1, -2)                      # (BC, Q, Q)
+    lower = torch.ones((q, q), dtype=torch.bool, device=cc.device).tril()
+    diff = acum.to(acc_t)[..., :, None] - acum.to(acc_t)[..., None, :]
+    ell = torch.exp(torch.where(lower, diff, float("-inf")))  # (BC, H, Q, Q)
+    dx = (scores[:, None] * ell).transpose(-1, -2) @ dyf
+    gl = torch.where(lower, dyf @ xf.transpose(-1, -2), 0.0) * ell
+    ds = gl.sum(dim=1)                                      # (BC, Q, Q)
+    gm = gl * scores[:, None]
+    dacum = gm.sum(dim=-1) - gm.sum(dim=-2)
+    return ds @ bf, ds.transpose(-1, -2) @ cf, dacum, dx
+
+
+class SSDIntraFn(torch.autograd.Function):
+    """``ssd_intra`` under autograd: the forward of ``_forward``, the
+    backward of ``ssd_intra_backward``."""
+
+    @staticmethod
+    def forward(ctx, cc, bc, acum, xd):
+        out, route = _forward(cc, bc, acum, xd)
+        ctx.save_for_backward(cc, bc, acum, xd)
+        ctx.route = route
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = ssd_intra_backward(*ctx.saved_tensors, dy)
+        _build.count_backward(ssd_intra, ctx.route)
+        return grads
 
 
 def launch_plan(bcn: int, h: int, q: int, n: int, p: int) -> dict:
@@ -102,9 +155,18 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, acum: torch.Tensor,
               xd: torch.Tensor) -> torch.Tensor:
     """cc, bc: (BC, Q, N); acum: (BC, H, Q); xd: (BC, H, Q, P), all fp32
     and contiguous on the card, N <= MAX_N and P <= MAX_P.  Returns y_diag
-    (BC, H, Q, P)."""
+    (BC, H, Q, P).  Where autograd records, through ``SSDIntraFn``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (cc, bc, acum, xd)):
+        return SSDIntraFn.apply(cc, bc, acum, xd)
+    return _forward(cc, bc, acum, xd)[0]
+
+
+def _forward(cc, bc, acum, xd):
+    """The forward and its route: the plain version (``"plain"``) on a CPU
+    or meta tensor, else the kernel (``"sm90"``)."""
     if cc.device.type in _build.PLAIN_DEVICES:
-        return ssd_intra_plain(cc, bc, acum, xd)
+        return ssd_intra_plain(cc, bc, acum, xd), "plain"
     if cc.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {cc.device}")
     if cc.dim() != 3 or xd.dim() != 4:
@@ -130,7 +192,7 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, acum: torch.Tensor,
         raise ValueError(f"state dim N={n} above the kernel's {MAX_N}")
     out = torch.empty_like(xd)
     if out.numel() == 0:
-        return out
+        return out, "sm90"
     plan = _plan(bcn, h, q, n, p)
     if bcn > 65535 or plan["tiles"] > 65535:
         raise ValueError(f"BC={bcn}, Q={q}: grid above the card's 65,535")
@@ -144,7 +206,8 @@ def ssd_intra(cc: torch.Tensor, bc: torch.Tensor, acum: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ssd_intra launch failed: cudaError_t {err}")
     _build.count_launch(ssd_intra)
-    return out
+    return out, "sm90"
 
 
 ssd_intra.launches = 0
+ssd_intra.backward_calls = {"sm90": 0, "plain": 0}

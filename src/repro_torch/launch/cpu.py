@@ -17,7 +17,7 @@ port of the reference's ``repro/launch/cpu.py``.
   (``configure_cpu_devices`` and its ``XLA_FLAGS`` helpers), which has no
   PyTorch counterpart; here the count is checked against the visible
   cards, and more than one device waits for sharded sessions (ROADMAP
-  A10).
+  A10b).
 
 On the card's host a worker thread walks the graph and launches the
 kernels, so keeping it on its own cores keeps the scheduler from migrating
@@ -59,7 +59,7 @@ def check_devices(n: int, device="cuda") -> int:
     fewer visible cards than ``n`` raises ``RuntimeError`` (there is no
     fallback to the CPU); ``n > 1`` raises ``NotImplementedError``: a
     session sharded over several devices waits for the multi-chip slice
-    (ROADMAP A10)."""
+    (ROADMAP A10b)."""
     import torch
 
     n = int(n)
@@ -75,7 +75,7 @@ def check_devices(n: int, device="cuda") -> int:
     if n > 1:
         raise NotImplementedError(
             f"devices={n}: sharded sessions (one session over several "
-            "devices) wait for the multi-chip slice (ROADMAP A10); serve "
+            "devices) wait for the multi-chip slice (ROADMAP A10b); serve "
             "replicas with --workers instead")
     return n
 

@@ -60,6 +60,16 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _pace(t_arrival: float, t0: float) -> None:
+    """Sleep until ``t_arrival`` seconds after ``t0`` (a
+    ``time.perf_counter`` reading), if that is still ahead.  The clock is
+    read once: read again for the sleep's length, it may already have
+    passed the arrival, and ``time.sleep`` refuses a negative length."""
+    left = t_arrival - (time.perf_counter() - t0)
+    if left > 0:
+        time.sleep(left)
+
+
 def serve_artifact(path: str, n_requests: int, *, max_batch: int = 8,
                    max_wait_ms: float = 2.0, max_queue: int = 64,
                    deadline_ms: float = None, workers: int = 1,
@@ -167,8 +177,8 @@ def serve_artifact(path: str, n_requests: int, *, max_batch: int = 8,
     n_retries = 0
     try:
         for req, x in zip(reqs, xs):
-            if req is not None and req.t > time.perf_counter() - t_serve0:
-                time.sleep(req.t - (time.perf_counter() - t_serve0))
+            if req is not None:
+                _pace(req.t, t_serve0)
             while True:
                 try:
                     futures.append(server.submit(

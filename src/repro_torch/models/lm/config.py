@@ -39,9 +39,10 @@ class LMConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: str = "float32"     # smoke default; production configs use bf16
-    # remat, remat_policy, unroll_layers and shard_strategy are training
-    # and multi-chip settings (ROADMAP A10): kept so configs and their JSON
-    # round-trip with the reference's, read by nothing in the port yet
+    # remat and remat_policy are read by the training forward
+    # (models/lm/model.py); unroll_layers and shard_strategy are multi-chip
+    # settings (ROADMAP A10b), kept so configs and their JSON round-trip
+    # with the reference's, read by nothing in the port yet
     remat: bool = False        # activation checkpointing in train_step
     shard_strategy: str = "tp"   # "tp" | "pure_dp" (model axis as extra DP)
     fused_gates: bool = False    # rglru: one (W, 2W) gate matmul, not two

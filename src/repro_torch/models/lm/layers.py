@@ -17,7 +17,7 @@ products and combined with their top-k gates.  Cross-attention (whisper's
 decoder) is ``flash_attention`` too, its keys the encoder's S_enc
 positions against S queries, S_enc != S: B3 takes a kv length of its own.
 On one card the reference's ``shard_hint`` calls are the identity and are
-dropped (ROADMAP A10).
+dropped (ROADMAP A10b).
 """
 from __future__ import annotations
 

@@ -23,17 +23,30 @@ encdec, vlm).
   builds its own per call).
 * A ``moe`` layer is a dense layer whose MLP is ``layers.moe_ffn``; a
   ``vlm`` layer is a dense one, its image embeddings (a stub frontend's)
-  put before the text's.  ``forward`` returns the logits only: the
-  reference's summed MoE aux loss is for training (ROADMAP A10) and is
-  checked at the ``moe_ffn`` level.  On one card the reference's
-  ``shard_hint`` calls are the identity and are dropped (ROADMAP A10).
+  put before the text's.  ``forward``, ``prefill`` and ``decode_step``
+  return the logits only; ``loss_fn`` (training) also takes the summed MoE
+  load-balance loss, through ``_forward_with_aux``, as the reference's
+  ``forward`` returns it.  On one card the reference's ``shard_hint`` calls
+  are the identity and are dropped (ROADMAP A10b).
+* Each stacked leaf is unbound once a forward (``torch.unbind``, whose
+  backward is one stack), not indexed once a layer (under autograd each
+  index's backward would fill a zero tensor the size of the whole
+  stack).
+* Training (``loss_fn`` under autograd): with ``cfg.remat`` each layer of the
+  stacked and hybrid families runs under
+  ``torch.utils.checkpoint.checkpoint`` (``remat_policy="dots"`` saves
+  the outputs of the matmuls), as the reference wraps its layer function
+  in ``jax.checkpoint``.  A recompute launches the layer's kernels again.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import rglru, ssm
@@ -248,9 +261,54 @@ def _layer(tree: Dict, i: int) -> Dict:
             for k, v in tree.items()}
 
 
+def _unbind(tree: Dict) -> Dict:
+    return {k: _unbind(v) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+
+
+def _requires_grad(tree) -> bool:
+    """Whether autograd records this forward: grad is enabled and some
+    leaf of ``tree`` requires it."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    return tree.requires_grad
+
+
 def _layers(params: Dict, cfg: LMConfig) -> Iterator[Dict]:
+    """Each layer's slice of the stacked leaves, unbound once: under
+    autograd the backward of an unbind is one stack, where each index
+    would add a zero tensor the size of the whole stack."""
+    tree = _unbind(params["layers"])
     for i in range(cfg.n_layers):
-        yield _layer(params["layers"], i)
+        yield _layer(tree, i)
+
+
+# the ops whose outputs remat_policy="dots" saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: LMConfig, grad: bool):
+    """``fn`` run under activation checkpointing where ``cfg.remat`` is
+    set and autograd records: its activations are recomputed in the
+    backward (all of them, or with ``remat_policy="dots"`` all but the
+    matmuls' outputs)."""
+    if not (cfg.remat and grad):
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 # ===========================================================================
@@ -258,46 +316,61 @@ def _layers(params: Dict, cfg: LMConfig) -> Iterator[Dict]:
 # ===========================================================================
 
 def _ffn(h, lp, cfg: LMConfig):
-    """A dense, vlm or moe layer's feed-forward block on (B, S, d)."""
+    """A dense, vlm or moe layer's feed-forward block on (B, S, d), and
+    the moe layer's load-balance loss (None for the others)."""
     if cfg.family != "moe":
-        return L.mlp(h, lp["mlp"], cfg)
+        return L.mlp(h, lp["mlp"], cfg), None
     b, s, d = h.shape
     flat = h.reshape(b * s, d)
-    y, _ = L.moe_ffn(flat, lp["moe"], cfg)
+    y, aux = L.moe_ffn(flat, lp["moe"], cfg)
     # The reference adds the shared (kimi-k2) and dense residual (arctic)
     # MLPs only where the layer's own parameters hold "shared" or "dense",
     # and its tree keeps them under lp["moe"], so neither runs there; the
     # port matches it (ROADMAP C)
-    return y.reshape(b, s, d)
+    return y.reshape(b, s, d), aux["lb_loss"]
 
 
 def _dense_layer_fwd(x, lp, cfg: LMConfig, positions):
     """One dense, vlm or moe layer; also returns its rope'd K/V for a
-    cache."""
+    cache and its load-balance loss (None but for moe)."""
     h = L.apply_norm(x, lp["ln1"], cfg)
     attn_out, kv = L.attention(h, lp["attn"], cfg, positions=positions)
     x = x + attn_out
     h = L.apply_norm(x, lp["ln2"], cfg)
-    return x + _ffn(h, lp, cfg), kv
+    y, lb = _ffn(h, lp, cfg)
+    return x + y, kv, lb
+
+
+def _ssm_layer_fwd(x, lp, cfg: LMConfig):
+    """One Mamba-2 layer with its residual; also its final SSM and conv
+    states."""
+    normed = L.apply_norm(x, lp["norm"], cfg)
+    out, states = ssm.mamba2_layer(normed, lp, cfg)
+    return x + out, states
 
 
 def _run_stacked(params, cfg: LMConfig, x, positions, cache=None):
-    """The layer loop of a stacked family.  With ``cache``, each layer's
-    K/V (dense, moe, vlm) or final SSM and conv states (ssm) are written
-    into it at position 0."""
+    """The layer loop of a stacked family, and its moe layers' load-balance
+    losses (a list, empty for the other families).  With ``cache``, each
+    layer's K/V (dense, moe, vlm) or final SSM and conv states (ssm) are
+    written into it at position 0."""
+    grad = _requires_grad(params["layers"])
+    lbs = []
     for i, lp in enumerate(_layers(params, cfg)):
         if cfg.family == "ssm":
-            normed = L.apply_norm(x, lp["norm"], cfg)
-            out, (s_new, c_new) = ssm.mamba2_layer(normed, lp, cfg)
-            x = x + out
+            x, (s_new, c_new) = _remat(_ssm_layer_fwd, cfg, grad)(x, lp,
+                                                                   cfg)
             if cache is not None:
                 cache["ssm"][i] = s_new
                 cache["conv"][i] = c_new
         else:
-            x, kv = _dense_layer_fwd(x, lp, cfg, positions)
+            x, kv, lb = _remat(_dense_layer_fwd, cfg, grad)(x, lp, cfg,
+                                                             positions)
+            if lb is not None:
+                lbs.append(lb)
             if cache is not None:
                 _write_kv(cache["k"][i], cache["v"][i], kv, 0)
-    return x
+    return x, lbs
 
 
 def _ring(t: torch.Tensor, w: int) -> torch.Tensor:
@@ -312,26 +385,39 @@ def _run_hybrid(params, cfg: LMConfig, x, positions, cache=None):
     layer's ring holds its last ``w`` positions' K/V, and a recurrent
     layer's LRU and conv states are its final ones."""
     s = x.shape[1]
+    grad = _requires_grad(params["layers_list"])
     for i, lp in enumerate(params["layers_list"]):
-        h = L.apply_norm(x, lp["ln1"], cfg)
-        if cfg.layer_kind(i) == "attn":
-            out, kv = L.attention(h, lp["attn"], cfg, positions=positions,
-                                  window=cfg.local_window)
-            if cache is not None:
-                cl = cache["layers"][i]
-                w = cl["k"].shape[2]
-                if s >= w:
-                    cl["k"], cl["v"] = (_ring(t, w) for t in kv)
-                else:
-                    _write_kv(cl["k"], cl["v"], kv, 0)
+        kind = cfg.layer_kind(i)
+        x, state = _remat(_hybrid_layer_fwd, cfg, grad)(x, lp, cfg, kind,
+                                                         positions)
+        if cache is None:
+            continue
+        if kind == "attn":
+            cl = cache["layers"][i]
+            w = cl["k"].shape[2]
+            if s >= w:
+                cl["k"], cl["v"] = (_ring(t, w) for t in state)
+            else:
+                _write_kv(cl["k"], cl["v"], state, 0)
         else:
-            out, (lru, conv) = rglru.recurrent_block(h, lp["rec"], cfg)
-            if cache is not None:
-                cache["layers"][i].update(lru=lru, conv=conv)
-        x = x + out
-        h = L.apply_norm(x, lp["ln2"], cfg)
-        x = x + L.mlp(h, lp["mlp"], cfg)
+            lru, conv = state
+            cache["layers"][i].update(lru=lru, conv=conv)
     return x
+
+
+def _hybrid_layer_fwd(x, lp, cfg: LMConfig, kind: str, positions):
+    """One hybrid layer (banded attention or an RG-LRU block, then the
+    MLP); also the attention's K/V or the block's final LRU and conv
+    states."""
+    h = L.apply_norm(x, lp["ln1"], cfg)
+    if kind == "attn":
+        out, state = L.attention(h, lp["attn"], cfg, positions=positions,
+                                 window=cfg.local_window)
+    else:
+        out, state = rglru.recurrent_block(h, lp["rec"], cfg)
+    x = x + out
+    h = L.apply_norm(x, lp["ln2"], cfg)
+    return x + L.mlp(h, lp["mlp"], cfg), state
 
 
 def _encode(params, cfg: LMConfig, frames):
@@ -406,14 +492,32 @@ def _frames(cfg: LMConfig, frames):
 
 
 def _run(params, cfg: LMConfig, x, frames, cache=None):
-    """Every layer of any family over the embedded sequence x."""
+    """Every layer of any family over the embedded sequence x; returns
+    the last hidden states and the moe layers' load-balance losses (a
+    list, empty but for moe)."""
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.family in STACKED:
         return _run_stacked(params, cfg, x, positions, cache=cache)
     if cfg.family == "hybrid":
-        return _run_hybrid(params, cfg, x, positions, cache=cache)
+        return _run_hybrid(params, cfg, x, positions, cache=cache), []
     enc_out = _encode(params, cfg, frames.to(x.device))
-    return _run_decoder(params, cfg, x, positions, enc_out, cache=cache)
+    return _run_decoder(params, cfg, x, positions, enc_out,
+                        cache=cache), []
+
+
+def _forward_with_aux(params, cfg: LMConfig, tokens: torch.Tensor,
+                      img_embeds=None, frames=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``forward``: logits (B, S_total, V) and the summed
+    MoE aux loss."""
+    if cfg.family == "vlm" and img_embeds is None:
+        raise ValueError(f"{cfg.name}: the vlm family's forward needs "
+                         "img_embeds=")
+    x = _embed(params, cfg, tokens, img_embeds)
+    x, lbs = _run(params, cfg, x, _frames(cfg, frames))
+    aux = (torch.stack(lbs).sum() if lbs else
+           torch.zeros((), dtype=torch.float32, device=x.device))
+    return _logits(params, cfg, x), aux
 
 
 def forward(params, cfg: LMConfig, tokens: torch.Tensor, *,
@@ -422,12 +526,33 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor, *,
     """tokens: (B, S_text) integers on the parameters' device; a vlm takes
     ``img_embeds`` (B, S_img, d), an encdec ``frames`` (B, S_enc, d).
     Returns logits (B, S_total, V).  (The reference also returns the
-    summed MoE aux loss, a training term.)"""
-    if cfg.family == "vlm" and img_embeds is None:
-        raise ValueError(f"{cfg.name}: the vlm family's forward needs "
-                         "img_embeds=")
-    x = _embed(params, cfg, tokens, img_embeds)
-    return _logits(params, cfg, _run(params, cfg, x, _frames(cfg, frames)))
+    summed MoE aux loss, which ``loss_fn`` takes.)"""
+    return _forward_with_aux(params, cfg, tokens, img_embeds, frames)[0]
+
+
+# ===========================================================================
+# Loss
+# ===========================================================================
+
+def loss_fn(params, cfg: LMConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's training loss: the mean cross-entropy, in fp32
+    (a logsumexp), over the targets >= 0 (a vlm's text positions only),
+    plus 0.01 times the summed MoE load-balance loss.  ``batch`` holds
+    ``tokens`` and ``targets`` (B, S_text), and a vlm's ``img_embeds`` or an
+    encdec's ``frames``.  Returns (total, {"ce", "aux"})."""
+    logits, aux = _forward_with_aux(
+        params, cfg, batch["tokens"], img_embeds=batch.get("img_embeds"),
+        frames=batch.get("frames"))
+    targets = batch["targets"].long()
+    if cfg.family == "vlm":
+        logits = logits[:, -targets.shape[1]:]
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.clamp_min(0)[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    ce = ((logz - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ===========================================================================
@@ -484,7 +609,7 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor, *, max_len: int,
     frames = _frames(cfg, frames)
     x = _embed(params, cfg, tokens, img_embeds)
     cache = init_cache(cfg, tokens.shape[0], max_len, x.device)
-    x = _run(params, cfg, x, frames, cache=cache)
+    x, _ = _run(params, cfg, x, frames, cache=cache)
     # only the last position's logits are returned: the norm and the head
     # act on each position alone, so the others are not computed
     return cache, _logits(params, cfg, x[:, -1:])[:, -1]
@@ -563,7 +688,7 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, cache: Dict,
                                            cache["k"][i], cache["v"][i],
                                            pos, pos + 1)
                 h = L.apply_norm(x, lp["ln2"], cfg)
-                x = x + _ffn(h, lp, cfg)
+                x = x + _ffn(h, lp, cfg)[0]
             else:
                 normed = L.apply_norm(x, lp["norm"], cfg)
                 out, (s_new, c_new) = ssm.mamba2_layer(

@@ -37,9 +37,16 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t * h_{t-1} + b_t with h_{-1} = 0 along dim 1, by doubling:
     after the step of span s, (a_t, b_t) composes positions t - 2s + 1 ..
     t.  Each step reads the values of the one before, never its own.
-    Works in place: ``a`` and ``b`` are overwritten, and ``b`` is
-    returned as h."""
+    Works in place where autograd does not record (``a`` and ``b`` are
+    overwritten, and ``b`` is returned as h); where it does, the same steps
+    run out of place, with the same arithmetic."""
     t, s = a.shape[1], 1
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        while s < t:
+            b = torch.cat([b[:, :s], b[:, s:] + a[:, s:] * b[:, :-s]], dim=1)
+            a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+            s *= 2
+        return b
     while s < t:
         carried = a[:, s:] * b[:, :-s]
         a_new = a[:, s:] * a[:, :-s]
@@ -57,7 +64,11 @@ def rg_lru(x: torch.Tensor, i_gate: torch.Tensor, r_gate: torch.Tensor,
     a, b = _decay_and_input(x, i_gate, r_gate, lam)
     if h0 is not None:
         # fold the carried-in state into the first step's additive term
-        b[:, 0] += a[:, 0] * h0.float()
+        head = a[:, 0] * h0.float()
+        if torch.is_grad_enabled() and b.requires_grad:
+            b = torch.cat([(b[:, 0] + head)[:, None], b[:, 1:]], dim=1)
+        else:
+            b[:, 0] += head
     h = linear_scan(a, b)
     return h.to(x.dtype), h[:, -1]
 

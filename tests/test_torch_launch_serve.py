@@ -13,6 +13,7 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -187,6 +188,26 @@ def test_cnn_artifact_output_matches_the_reference(cnn_artifact, flags,
     assert out.count(f"served {n}/{n} requests") == 2
     if "--health" in flags:
         assert out.count("health:") == 2 and "per-class p99" in out
+
+
+def test_trace_pacing_reads_the_clock_once(monkeypatch):
+    """A replayed trace waits for each request's arrival time; the clock
+    moves between two readings, so a second reading for the sleep's
+    length could pass the arrival and ask ``time.sleep`` for a negative
+    length, which raises (seen on a loaded host)."""
+    clock = iter([1.00, 1.10, 1.20])
+    slept = []
+
+    def sleep(s):
+        if s < 0:
+            raise ValueError("sleep length must be non-negative")
+        slept.append(s)
+
+    monkeypatch.setattr(serve, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(clock), sleep=sleep))
+    serve._pace(0.05, 0.96)           # 0.01 s ahead at the one reading
+    serve._pace(0.05, 0.96)           # already past: no sleep
+    assert slept == [pytest.approx(0.01)]
 
 
 def test_dtype_gate_both_ways(cnn_artifact, int8_artifact):
