@@ -197,6 +197,20 @@ Phases, each a function of a device and a size:
                 ``generate``'s, nothing searched, and each ``--arch`` run's
                 kernels launch as its family predicts (B3 on its fp32
                 route, B2 in the moe configs, B4 in mamba2).
+   multidevice — A10b on the card (``phase_multidevice``), after launch:
+                ResNet-50 @224 compiled with ``devices=1`` through the
+                batch-sharded executor, 53 B1 launches a predict (sm90),
+                outputs bit-identical to phase 3's session; a ``devices=2``
+                artifact saved with its source on the CPU at 64, loaded on
+                the card re-targeted to ``devices=1``, held to the CPU's
+                ``devices=2`` predict; ``compile(..., devices=2)`` and
+                ``python -m repro_torch.launch.serve --devices 2`` on one
+                card must raise naming both counts; then an ``nccl`` group
+                of one, a 1 x 1 ("data", "model") mesh, qwen2-1.5b's
+                parameters as DTensors under ``param_shardings``: a
+                2,048-token ``make_prefill`` (B3 28 launches, sm90) and
+                one ``make_serve_step``, logits held to the session's own
+                prefill and decode step;
    train      — A10a on the card (``phase_train``), after every earlier
                 session is released: each kernel's autograd Function
                 against autograd of its plain version (B3 at qwen2-1.5b's
@@ -632,7 +646,8 @@ def with_logits(m):
     for o in list(graph.outputs):
         if graph.nodes[o].op == "softmax":
             graph.mark_output(graph.nodes[o].inputs[0])
-    return CompiledModel(plan=plan, params=m.params, use_kernel=m.use_kernel)
+    return CompiledModel(plan=plan, params=m.params, use_kernel=m.use_kernel,
+                         devices=m.devices)
 
 
 def plan_variants(plan) -> dict:
@@ -2642,7 +2657,7 @@ def phase_lm_frontend_e2e(run: dict, device, decode_steps: int = 32) -> dict:
         if b == 1:
             out["prefill_profile"] = {"tokens": r["prefill_tokens"],
                                       **_device_busy(pre, 3)}
-            prof = _device_busy(step, 16)
+            prof = _device_busy(step, DECODE_TRACE)
             if prof["device_ms"] != "not measured":
                 prof["idle_share_unprofiled"] = 1 - prof["device_ms"] / ms
             out["decode_profile"] = prof
@@ -2899,48 +2914,63 @@ def phase_lm_kernel_times(device, iters: int = 10) -> dict:
     return rows
 
 
-# Every trace opens with TRACE_PAD_S of idle host time, then TRACE_LEAD
-# empty kernels that its sums leave out, and closes with TRACE_PAD_S more:
-# the card's times reach a trace mapped onto the host's clock, off by up to
+# Every trace opens with TRACE_PAD_S of idle host time, then lead empty
+# kernels that its sums leave out, and closes with TRACE_PAD_S more: the
+# card's times reach a trace mapped onto the host's clock, off by up to
 # 2.1 ms from trace to trace, and the profiler keeps only what falls inside
-# its window; and late in a long run a trace missed the kernels of its
-# first 9 to 14 launches whatever the idle time (PERF.md §6)
+# its window; and a trace loses the kernels of its first launches whatever
+# the idle time, more of them the longer the process has run: 1 early in
+# the run, 17 to 23 at the zoo, 50 to 54 at the A8 traces late in one run
+# and past 64 in another's (PERF.md §6).  So a trace leads with 256 of
+# them, and each retake with more
 TRACE_PAD_S = 0.05
-TRACE_LEAD = 64
+TRACE_LEADS = (256, 2048, 16384)
+# decode steps in a profiler trace: reading a trace back costs the host
+# time in proportion to its events (``_launch_gaps``' ``read_s``), about
+# three a launch, and 16 steps of qwen2 or llava came to 35,000 to 40,000
+# launches a trace
+DECODE_TRACE = 4
 
 
-def _launch_gaps(prof) -> dict:
+def _launch_gaps(prof, lead: int) -> dict:
     """What a trace says of its own launches: the kernel launches on the
     host, where those with no kernel in the trace stand in launch order
-    (the first 20), how many of them come after the ``TRACE_LEAD`` first
-    (``missed``), the correlation ids of those first (``lead_ids``), and
-    the range of (kernel start - launch start) in ms over the launches
-    that have a kernel."""
+    (the first 20), how many lead the trace with no kernel
+    (``lost_prefix``), how many of them come after the ``lead`` first
+    (``missed``) and where (``missed_at``, the first 20), the correlation
+    ids of those first (``lead_ids``), the range of (kernel start -
+    launch start) in ms over the launches that have a kernel, and the
+    trace's events with the seconds the first read of them took."""
     from torch.autograd import DeviceType
 
+    t0 = time.perf_counter()
     events = prof.events()
+    read_s = time.perf_counter() - t0
     kernels = {e.id: e for e in events if e.device_type == DeviceType.CUDA}
     launches = sorted((e for e in events if e.device_type == DeviceType.CPU
                        and "LaunchKernel" in e.name),
                       key=lambda e: e.time_range.start)
     missing = [i for i, e in enumerate(launches) if e.id not in kernels]
+    after = [i for i in missing if i >= lead]
     offs = [kernels[e.id].time_range.start - e.time_range.start
             for e in launches if e.id in kernels]
     return {"launches": len(launches), "missing_at": missing[:20],
-            "missed": sum(1 for i in missing if i >= TRACE_LEAD),
-            "lead_ids": {e.id for e in launches[:TRACE_LEAD]},
+            "lost_prefix": next((n for n, i in enumerate(missing) if i != n),
+                                len(missing)),
+            "lead": lead, "missed": len(after), "missed_at": after[:20],
+            "lead_ids": {e.id for e in launches[:lead]},
             "kernel_minus_launch_ms": [min(offs) / 1e3, max(offs) / 1e3]
-            if offs else None}
+            if offs else None, "events": len(events), "read_s": read_s}
 
 
 def _profiled(fn, iters: int, b1: int | None = None,
               labels: dict | None = None):
     """``iters`` calls of ``fn`` (after one outside the trace) under
     ``torch.profiler`` (and ``node_ranges(labels)`` unless ``labels`` is
-    None), between the idle spans and after the lead kernels above.  Every launch after the
-    lead must have its kernel in the trace, and with ``b1`` the trace
-    must hold that many B1 launches; it is taken up to three times, then
-    this raises.  Returns the profiler, the wall ms per call, the B1
+    None), between the idle spans and after the lead kernels above.  Every
+    launch after the lead must have its kernel in the trace, and with
+    ``b1`` the trace must hold that many B1 launches; it is taken up to
+    three times, with the leads of ``TRACE_LEADS``, then this raises.  Returns the profiler, the wall ms per call, the B1
     launches the trace holds and ``_launch_gaps`` with the number of takes
     (its ``lead_ids`` the sums leave out)."""
     from torch.autograd import DeviceType
@@ -2948,13 +2978,13 @@ def _profiled(fn, iters: int, b1: int | None = None,
 
     fn()
     torch.cuda.synchronize()
-    for take in range(1, 4):
+    for take, lead in enumerate(TRACE_LEADS, 1):
         with (contextlib.nullcontext() if labels is None
               else node_ranges(labels)), \
                 profile(activities=[ProfilerActivity.CPU,
                                     ProfilerActivity.CUDA]) as prof:
             time.sleep(TRACE_PAD_S)
-            for _ in range(TRACE_LEAD):
+            for _ in range(lead):
                 torch.cuda._sleep(0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2963,27 +2993,28 @@ def _profiled(fn, iters: int, b1: int | None = None,
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / iters
             time.sleep(TRACE_PAD_S)
-        gaps = {**_launch_gaps(prof), "takes": take}
+        gaps = {**_launch_gaps(prof, lead), "takes": take}
         held = sum(1 for e in prof.events() if e.device_type ==
                    DeviceType.CUDA and B1_KERNEL in e.name)
         if not gaps["missed"] and (b1 is None or held == b1):
             return prof, wall_ms, held, gaps
     gaps.pop("lead_ids")
     raise RuntimeError(f"a trace of {iters} calls held {held} of {b1} B1 "
-                       f"launches, three times: {gaps}")
+                       f"launches, {len(TRACE_LEADS)} times: {gaps}")
 
 
 def _device_busy(fn, iters: int, b1: int | None = None) -> dict:
     """Wall ms per call and device ms per call (sum of the card's kernel
     times) over ``iters`` calls under ``torch.profiler`` (``_profiled``;
-    ``b1``: the B1 launches the trace must hold), and the top kernels by
-    device time."""
+    ``b1``: the B1 launches the trace must hold), the top kernels by
+    device time and the trace's ``_launch_gaps``."""
     from torch.autograd import DeviceType
 
     prof, wall_ms, _, gaps = _profiled(fn, iters, b1)
+    lead = gaps.pop("lead_ids")
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.id not in gaps["lead_ids"]:
+        if e.device_type == DeviceType.CUDA and e.id not in lead:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / iters)
     busy = sum(by_name.values())
@@ -2991,7 +3022,8 @@ def _device_busy(fn, iters: int, b1: int | None = None) -> dict:
     return {"wall_ms": wall_ms,
             "device_ms": busy if by_name else "not measured",
             "idle_share": 1 - busy / wall_ms if by_name else "not measured",
-            "top_ms": [[name[:80], ms] for name, ms in top]}
+            "top_ms": [[name[:80], ms] for name, ms in top],
+            "launch_gaps": gaps}
 
 
 def _host_ms(fn, iters: int) -> list:
@@ -3092,7 +3124,7 @@ def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
     tok = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 1))).to(device)
     pos = iter(range(sess.max_len // 2, sess.max_len))
     prof = _device_busy(lambda: decode_step(sess._params, cfg, tok, cache,
-                                            next(pos)), 16)
+                                            next(pos)), DECODE_TRACE)
     # the profiler's host cost inflates its wall time; the idle share
     # against the unprofiled step time is the better estimate
     if prof["device_ms"] != "not measured":
@@ -3106,7 +3138,8 @@ def phase_lm_e2e(main_run: dict, device, decode_steps: int = 32) -> dict:
                                             size=(big.batch, 1))).to(device)
         pos = iter(range(big.max_len // 2, big.max_len))
         out[f"decode_profile_batch{big.batch}"] = _device_busy(
-            lambda: decode_step(big._params, cfg, tok, cache, next(pos)), 16)
+            lambda: decode_step(big._params, cfg, tok, cache, next(pos)),
+            DECODE_TRACE)
     emit(out)
     return out
 
@@ -5322,6 +5355,240 @@ def phase_a8(device, memory: list) -> dict:
     return {"main": main, "e2e": e2e, "parity": parity}
 
 
+# ---------------------------------------------------------------------------
+# multidevice (A10b): batch-sharded CNN sessions, the LM placement layer
+# ---------------------------------------------------------------------------
+
+MULTI_REQUESTS = 4       # batch-1 predicts of the devices=1 session
+MULTI_SMALL = 64         # the re-targeted artifact's image
+MULTI_PROMPT = 2048      # qwen2-1.5b's sharded prefill
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def multidevice_cnn(device, main_run: dict, model: str = MODEL,
+                    image: int = IMAGE, small: int = MULTI_SMALL,
+                    requests: int = MULTI_REQUESTS) -> dict:
+    """The CNN half: ``compile(model, ..., devices=1)`` against
+    ``main_run``'s session (B1 once per conv node a predict, all sm90 on
+    the card; outputs bit-identical); a ``devices=2`` artifact saved on
+    the CPU with its source at ``small``, loaded on ``device`` re-targeted
+    to ``devices=1`` and held to the CPU's ``devices=2`` predict as
+    ``phase_main`` holds the card to the CPU; ``compile`` and the serving
+    command line asking for one more card than are visible must raise
+    naming both counts.  Every gate raises."""
+    from repro_torch.engine import InferenceSession, compile
+    from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
+
+    on_card = torch.device(device).type == "cuda"
+    xs = requests_for(image, requests, 1)[:requests]
+    sess = compile(model, (1, 3, image, image), device=device, devices=1)
+    n_convs = sum(1 for n in sess.plan_for(1).planned.graph.topo_order()
+                  if n.op in CONV_OPS)
+    reset_counts()
+    per_predict, ys = [], []
+    for x in xs:
+        before = conv2d_nchwc.launches
+        ys.append(_outputs(sess.predict(torch.from_numpy(x).to(device))))
+        per_predict.append(conv2d_nchwc.launches - before)
+    by_route = dict(conv2d_nchwc.launches_by_route)
+    same = [_same(y, _outputs(main_run["session"].predict(
+        torch.from_numpy(x).to(device)))) for x, y in zip(xs, ys)]
+    want_n = n_convs if on_card else 0
+    if any(n != want_n for n in per_predict):
+        raise RuntimeError(f"devices=1: B1 launches per predict "
+                           f"{per_predict}, expected {want_n} each")
+    if on_card and by_route != {"sm90": sum(per_predict)}:
+        raise RuntimeError(f"devices=1: B1 launches by route {by_route}")
+    if not all(same):
+        raise RuntimeError("devices=1: outputs differ from phase_main's "
+                           "session")
+
+    # a devices=2 artifact, saved on the CPU, re-targeted on the card
+    x2 = requests_for(small, 1, 2, seed=3)[-1]
+    cpu2 = compile(model, (2, 3, small, small), device="cpu", devices=2)
+    want = _outputs(with_logits(cpu2.specialize(2)).predict(
+        torch.from_numpy(x2)))
+    art = Path(tempfile.mkdtemp(prefix=".artifacts-", dir=ROOT))
+    try:
+        cpu2.save(art / "d2")
+        manifest = json.loads((art / "d2" / "manifest.json").read_text())
+        loaded = InferenceSession.load(art / "d2", device=device, devices=1)
+        if manifest["devices"] != 2 or loaded.devices != 1 \
+                or loaded.batch_sizes:
+            raise RuntimeError(f"re-target: manifest devices "
+                               f"{manifest['devices']}, loaded "
+                               f"{loaded.devices} {loaded.batch_sizes}")
+        got = _outputs(with_logits(loaded.specialize(2)).predict(
+            torch.from_numpy(x2).to(device)))
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    graph = cpu2.plan_for(2).planned.graph
+    errs = []
+    for o, g, w in zip(list(graph.outputs) + ["logits"], got, want):
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise RuntimeError(f"re-target: bad output {o} {g.shape}")
+        if graph.nodes.get(o) is not None and \
+                graph.nodes[o].op == "softmax":
+            np.testing.assert_allclose(g, w, **E2E_TOL)
+            continue
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=LOGIT_TOL,
+                                   atol=LOGIT_TOL * scale)
+        errs.append(float(np.abs(g - w).max()) / scale)
+
+    # more devices than visible: compile and the command line refuse
+    ask = torch.cuda.device_count() + 1
+    seen = str(torch.cuda.device_count())
+    try:
+        compile(model, (ask, 3, small, small), device="cuda", devices=ask,
+                eager=False)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError(f"compile(devices={ask}) did not raise")
+    if f"{ask} CUDA device(s) requested, {seen} visible" not in refused:
+        raise RuntimeError(f"compile(devices={ask}): {refused}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--devices",
+         str(ask), "--arch", "qwen2-1.5b"],
+        capture_output=True, text=True, timeout=CHILD_TIMEOUT_S, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    cli = f"{ask} CUDA device(s) requested, {seen} visible"
+    if proc.returncode == 0 or cli not in proc.stderr:
+        raise RuntimeError(f"serve --devices {ask}: exit "
+                           f"{proc.returncode}, {proc.stderr[-400:]}")
+    return {"model": model, "image": image,
+            "b1_launches_per_predict": per_predict,
+            "b1_launches_by_route": by_route,
+            "bit_identical_to_main": all(same),
+            "retarget": {"image": small, "saved_devices": 2,
+                         "loaded_devices": 1,
+                         "max_logit_err_vs_cpu_rel": max(errs),
+                         "logit_tol_rel": LOGIT_TOL},
+            "refused": refused, "cli_exit": proc.returncode}
+
+
+def multidevice_lm(device, lm_run: dict, prompt: int = None,
+                   seed: int = 5) -> dict:
+    """The LM half: a process group of one (``nccl`` on the card, ``gloo``
+    on the CPU) and a 1 x 1 ("data", "model") mesh; ``lm_run``'s session
+    parameters as DTensors under ``param_shardings``; ``make_prefill``
+    over ``prompt`` tokens and one ``make_serve_step`` under the mesh,
+    their logits within ``LOGIT_TOL`` of the largest of the session's own
+    ``prefill`` and ``decode_step`` on the same parameters.  On the card B3
+    must launch once per layer in the prefill, every launch on sm90.  The
+    group is destroyed at the end."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.dryrun import make_prefill, make_serve_step
+    from repro_torch.models.lm import model as lm
+    from repro_torch.models.lm.sharding import (distribute, leaf_spec,
+                                                param_shardings, placements,
+                                                use_mesh)
+
+    on_card = torch.device(device).type == "cuda"
+    prompt = prompt or MULTI_PROMPT
+    sess = lm_run["session"]
+    cfg, params = sess.cfg, sess._params
+    max_len = prompt + 8
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (1, prompt))).to(device)
+    with torch.inference_mode():
+        cache0, ref = lm.prefill(params, cfg, toks, max_len=max_len)
+        nxt = ref.argmax(-1, keepdim=True)
+        ref_step, _ = lm.decode_step(params, cfg, nxt, cache0, prompt)
+    del cache0
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda" if on_card else "cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        with torch.inference_mode(), \
+                use_mesh(mesh, strategy=cfg.shard_strategy), \
+                implicit_replication():
+            dparams = distribute(params, param_shardings(
+                mesh, params, strategy=cfg.shard_strategy), mesh)
+
+            def on_mesh(t):
+                return distribute_tensor(t, mesh, placements(
+                    mesh, leaf_spec(mesh, t.shape, t.shape[0])))
+
+            reset_counts()
+            t0 = time.perf_counter()
+            cache, got = make_prefill(cfg, max_len)(dparams,
+                                                    {"tokens": on_mesh(toks)})
+            got = got.full_tensor()
+            prefill_s = time.perf_counter() - t0
+            counts, routes = read_counts(), b3_routes()
+            got_step, _ = make_serve_step(cfg)(dparams, on_mesh(nxt), cache,
+                                               prompt)
+            got_step = got_step.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    want_n = cfg.n_layers if on_card else 0
+    if counts["flash_attention"] != want_n or \
+            (on_card and routes.get("sm90") != want_n):
+        raise RuntimeError(f"sharded prefill: B3 {counts} by route "
+                           f"{routes}, expected {want_n} on sm90")
+    errs = {}
+    for name, g, w in (("prefill", got, ref), ("serve_step", got_step,
+                                               ref_step)):
+        g, w = g.float().cpu(), w.float().cpu()
+        scale = float(w.abs().max())
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise RuntimeError(f"sharded {name}: bad logits {g.shape}")
+        err = float((g - w).abs().max()) / scale
+        if err > LOGIT_TOL:
+            raise RuntimeError(f"sharded {name}: logits {err:.3e} of the "
+                               f"largest from the session's, over "
+                               f"{LOGIT_TOL}")
+        errs[name] = {"max_logit_err_rel": err,
+                      "bit_identical": bool(torch.equal(g, w))}
+    return {"lm_model": sess.model_name, "mesh": "1x1",
+            "backend": "nccl" if on_card else "gloo", "prompt": prompt,
+            "b3_launches_prefill": counts["flash_attention"],
+            "b3_launches_by_route": routes, "prefill_s": prefill_s,
+            "lm": errs}
+
+
+def phase_multidevice(device, smi: str, main_run: dict, lm_run: dict,
+                      **cnn_kw) -> dict:
+    """A10b on ``device``: ``multidevice_cnn`` over ``main_run``'s
+    session, then ``multidevice_lm`` over ``lm_run``'s; one line with the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    cnn = multidevice_cnn(device, main_run, **cnn_kw)
+    lm = multidevice_lm(device, lm_run)
+    out = {"phase": "multidevice", "card": smi,
+           "seconds": time.perf_counter() - t0, **cnn, **lm}
+    emit(out)
+    return out
+
+
+def multidevice_only(device, smi: str) -> int:
+    """The multidevice phase alone, over sessions it compiles itself."""
+    from repro_torch.engine import compile
+
+    main_run = {"session": compile(MODEL, (1, 3, IMAGE, IMAGE), seed=0,
+                                   device=device)}
+    lm_run = {"session": compile("qwen2-1.5b", (1, 2048), seed=0,
+                                 device=device)}
+    phase_multidevice(device, smi, main_run, lm_run)
+    memory_line("multidevice", device)
+    return 0
+
+
 def memory_line(after: str, device) -> dict:
     """The card's peak allocated bytes since the last line, then a reset."""
     torch.cuda.synchronize(device)
@@ -5510,6 +5777,8 @@ def main() -> int:
         return launch_only(device, smi)
     if sys.argv[1:] == ["--train-only"]:
         return train_only(device, smi)
+    if sys.argv[1:] == ["--multidevice-only"]:
+        return multidevice_only(device, smi)
     if sys.argv[1:2] == ["--b3-times"] and len(sys.argv) <= 3:
         return b3_times(device, smi, Path(sys.argv[2]).resolve()
                         if len(sys.argv) == 3 else ROOT)
@@ -5577,6 +5846,9 @@ def main() -> int:
     finally:
         shutil.rmtree(kept, ignore_errors=True)
     memory.append(memory_line("launch", device))
+    multidevice = phase_multidevice(device, smi, main_run,
+                                    lm_runs["qwen2-1.5b"])
+    memory.append(memory_line("multidevice", device))
     # release every earlier session before arctic-480b's 55 GB of weights
     for run in [main_run, tuning, *lm_runs.values()]:
         run.pop("session")
@@ -5630,6 +5902,8 @@ def main() -> int:
                     t: {k: launch["cnn"][t][k] for k in (
                         "b1_launches", "batches", "b1_per_served_batch")}
                     for t in ("uniform", "bursty")},
+                "multidevice_launches_per_predict":
+                multidevice["b1_launches_per_predict"],
                 "tuning_launches_per_predict": {
                     f"{t['model']} {t.get('mode', t['phase'])}":
                     t["b1_per_predict"] for t in tuning["lines"]
@@ -5678,6 +5952,8 @@ def main() -> int:
                    for m, r in lm_runs.items()
                    if "flash_attention" in r["launches_by_kernel"]},
                 **{r["model"]: r["launches"] for r in a8["main"]}}
+            kernels[-1]["multidevice_launches_prefill"] = \
+                multidevice["b3_launches_prefill"]
             kernels[-1]["a8_shapes"] = [
                 {k: x.get(k) for k in ("model", "shape", "sk", "causal",
                                        "window", "device_ms", "ms",
@@ -5729,7 +6005,7 @@ def main() -> int:
               "tuning": tuning["lines"], "artifacts": artifacts,
               "serving": {k: serving[k] for k in (
                   "load", "chaos", "trace", "stream", "startup", "fleet")},
-              "launch": launch, "train": train,
+              "launch": launch, "train": train, "multidevice": multidevice,
               "memory": memory, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

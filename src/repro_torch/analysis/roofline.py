@@ -11,10 +11,14 @@ the port: ``core.cost.MachineModel.h100`` and ``chip_smoke.py``'s bounds
 read them from this module.  FLOPs and heavy bytes come from
 ``analysis.flops.count_costs`` (the aten ops of a step on the meta
 device); ``model_flops`` and ``model_bytes`` are the algorithmic minimum
-from the config alone.  The reference also parses collective bytes out of
-XLA's optimized HLO text (``parse_collective_bytes``, ``count_ops``); the
-port produces no HLO, and its collectives come with the multi-chip slice
-(ROADMAP A10b).
+from the config alone.  The reference parses its collectives out of XLA's
+optimized HLO text (``parse_collective_bytes``, ``count_ops``); the port
+produces no HLO.  Its collectives are the ones that DTensor issues while a
+step runs on a mesh, counted by :class:`CollectiveCounter` (a
+``CommDebugMode``) under the reference's kind names, each one's bytes the
+sum of its operands' local sizes (``launch/dryrun.py`` fills
+``RooflineReport.collectives`` and ``collective_bytes_per_device`` with
+them).
 """
 from __future__ import annotations
 
@@ -27,6 +31,69 @@ PEAK_TF32 = 495e12           # TF32 / card, on the tensor cores
 PEAK_FP32 = 67e12            # fp32 / card, outside the tensor cores
 HBM_BW = 3.35e12             # device-memory bytes/s / card
 NVLINK_BW = 450e9            # bytes/s / card, per direction
+
+
+# the reference's collective kinds (XLA's HLO op names)
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+# c10d functional collectives (native and legacy names) -> the kind
+_KINDS = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+          "all_gather_into_tensor": "all-gather",
+          "all_gather_into_tensor_coalesced": "all-gather",
+          "reduce_scatter_tensor": "reduce-scatter",
+          "reduce_scatter_tensor_coalesced": "reduce-scatter",
+          "all_to_all_single": "all-to-all",
+          "broadcast": "collective-permute"}
+
+
+def collective_kind(op_name: str):
+    """The reference's kind of a c10d collective op (``"all-gather"`` for
+    ``all_gather_into_tensor``), or None for any other op."""
+    return _KINDS.get(op_name.split(".")[-1].split("::")[-1])
+
+
+def CollectiveCounter():
+    """A ``torch.distributed.tensor.debug.CommDebugMode`` that also keeps,
+    by kind (``COLLECTIVES``), the count of the collectives dispatched
+    while it is active (``counts``) and their bytes: each one's operands'
+    local sizes summed (``bytes``, with a ``"total"``).  Built inside the
+    function, so importing this module imports no distributed module."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class _Counter(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = {c: 0 for c in COLLECTIVES}
+            self.bytes = {c: 0 for c in COLLECTIVES}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            # a DTensor op goes back to DTensor, which issues its
+            # collectives as plain ops; every other op but a collective
+            # runs as it is (CommDebugMode's record of each op would cost
+            # more than the op itself on the meta device)
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            kind = None
+            if not isinstance(func, torch._ops.HigherOrderOperator):
+                kind = collective_kind(func._overloadpacket.__name__)
+            if kind is None:
+                return func(*args, **(kwargs or {}))
+            self.counts[kind] += 1
+            self.bytes[kind] += sum(
+                a.numel() * a.element_size()
+                for a in torch.utils._pytree.tree_leaves(args)
+                if isinstance(a, torch.Tensor))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+        def collective_bytes(self) -> Dict[str, int]:
+            out = dict(self.bytes)
+            out["total"] = sum(self.bytes.values())
+            return out
+
+    return _Counter()
 
 
 @dataclasses.dataclass

@@ -21,14 +21,24 @@ reference's two names ("whole", "op"); both walk the graph node by node
 here, because the reference's whole-graph ``jax.jit`` has no counterpart
 until CUDA-graph capture lands.  ``replica(device)`` is the same program
 with its bound parameters on another device, the executable a serving
-worker on that device runs.  Batch-sharded execution (``devices > 1``)
-waits for the multi-chip slice (ROADMAP A10b).
+worker on that device runs.
+
+``devices=D`` executes batch-sharded, as the reference's ``shard_map`` over
+a 1-D data mesh does: the parameters are put on each device once (through
+``replica``), a batch of B is cut on dim 0 into D shards of B/D rows, each
+shard runs the plan built for B/D on its own device, and the outputs are
+concatenated in order on the first.  On "cuda" the shards run on
+``cuda:0`` to ``cuda:D-1``, all enqueued by the calling thread with no
+synchronisation between them (the launches are asynchronous); fewer
+visible cards than D raises (``shard_devices``).  On "cpu" the D shards
+run in turn, the stand-in for the reference's D forced host devices.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -238,25 +248,97 @@ def _eval_node(node, lay: Layout, schedule, use_kernel: bool,
     raise NotImplementedError(node.op)
 
 
+def shard_devices(devices: int, device) -> List[torch.device]:
+    """The devices that a model batch-sharded over ``devices`` runs its
+    shards on, the first holding its parameters: ``device`` itself for one;
+    on "cuda" ``cuda:0`` to ``cuda:D-1``, and ``RuntimeError`` where fewer
+    cards are visible (there is no fallback to the CPU); on "cpu" the CPU
+    D times (the shards run in turn)."""
+    devices = int(devices)
+    if devices < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device] * devices
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if found < devices:
+        raise RuntimeError(
+            f"{devices} CUDA device(s) requested, {found} visible "
+            f"(CUDA_VISIBLE_DEVICES="
+            f"{os.environ.get('CUDA_VISIBLE_DEVICES', '<unset>')}); run on "
+            f"a host with {devices} cards and CUDA_VISIBLE_DEVICES naming "
+            "them, lower devices=, or pass device='cpu' (--device cpu) for "
+            "the kernels' plain versions")
+    if devices == 1:
+        return [_concrete(device)]
+    return [torch.device("cuda", i) for i in range(devices)]
+
+
 @dataclasses.dataclass
 class CompiledModel:
     """Callable end-to-end executable for one plan, on the device its
-    bound parameters live on."""
+    bound parameters live on; ``devices > 1`` executes batch-sharded (see
+    the module docs)."""
 
     plan: Plan
     params: Params               # pre-transformed (bind_params output)
     dispatch: str = "whole"      # "whole" | "op": both node by node here
     use_kernel: bool = True      # False: the schedules' lowerings
+    devices: int = 1             # batch-sharded over this many devices
 
     def __post_init__(self):
         if self.dispatch not in DISPATCH_MODES:
             raise ValueError(f"unknown dispatch mode {self.dispatch!r}")
+        if self.devices < 1:
+            raise ValueError(f"devices must be >= 1, got {self.devices}")
+        if self.devices > 1 and self.dispatch != "whole":
+            raise ValueError("sharded execution (devices > 1) requires "
+                             "whole-graph dispatch; per-node dispatch "
+                             "would materialize every intermediate "
+                             "across the devices")
         self._topo = self.plan.planned.graph.topo_order()
         self._replicas: Dict[torch.device, "CompiledModel"] = {}
         self._replica_lock = threading.Lock()
+        self._shards: List["CompiledModel"] = []
+        if self.devices > 1:
+            # replicate once at bind, not per call
+            here = self.device
+            devs = shard_devices(self.devices,
+                                 here if here is not None else "cpu")
+            self._shards = [self._on(d) for d in devs]
+
+    def _check_batch(self, inputs: Dict[str, torch.Tensor]) -> None:
+        for name, v in inputs.items():
+            if v.shape[0] % self.devices:
+                raise ValueError(
+                    f"input {name!r} batch {v.shape[0]} is not divisible "
+                    f"by devices={self.devices}; sharded programs need an "
+                    "equal per-device sub-batch")
 
     @torch.inference_mode()
     def __call__(self, inputs: Dict[str, torch.Tensor]):
+        if self.devices == 1:
+            return self._walk(inputs)
+        self._check_batch(inputs)
+        d = self.devices
+        outs = []
+        for i, shard in enumerate(self._shards):
+            dev = shard.device
+            part = {k: v[i * (v.shape[0] // d):(i + 1) * (v.shape[0] // d)]
+                    for k, v in inputs.items()}
+            if dev is not None:
+                part = {k: v.to(dev, non_blocking=True)
+                        for k, v in part.items()}
+            outs.append(shard._walk(part))
+        first = self._shards[0].device
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[j].to(first) for o in outs])
+                         for j in range(len(outs[0])))
+        return torch.cat([o.to(first) for o in outs])
+
+    @torch.inference_mode()
+    def _walk(self, inputs: Dict[str, torch.Tensor]):
+        """The graph, node by node, on this model's parameters."""
         structure = self.plan.planned
         env: Dict[str, torch.Tensor] = {}
         for node in self._topo:
@@ -292,10 +374,18 @@ class CompiledModel:
     def replica(self, device) -> "CompiledModel":
         """The same program with its bound parameters on ``device`` — the
         executable a serving worker on that device runs.  ``self`` for the
-        model's own device; for another, a copy made once and cached per
-        device (the parameters copied, nothing re-planned or re-bound)."""
+        model's own device, and for a sharded model (it already spans its
+        devices); for another, a copy made once and cached per device (the
+        parameters copied, nothing re-planned or re-bound)."""
+        if self.devices > 1:
+            return self
+        return self._on(device)
+
+    def _on(self, device) -> "CompiledModel":
+        """The one-device program on ``device``: ``self`` where its
+        parameters live, else a cached copy of them there."""
         device = _concrete(torch.device(device))
-        if device == self.device:
+        if device == self.device or self.device is None:
             return self
         with self._replica_lock:
             rep = self._replicas.get(device)
@@ -317,12 +407,13 @@ def _concrete(device: torch.device) -> torch.device:
 
 
 def compile_model(plan: Plan, params: Params, dispatch: str = "whole",
-                  use_kernel: bool = True,
-                  fold_bn: bool = True) -> CompiledModel:
+                  use_kernel: bool = True, fold_bn: bool = True,
+                  devices: int = 1) -> CompiledModel:
     """Bind ``params`` to ``plan`` and wrap the executable.  ``use_kernel``
     (default) runs every blocked conv on the conv kernel; ``False`` runs
     each on its schedule's lowering (the reference's ``use_pallas=False``
-    path), which int8 schedules need."""
+    path), which int8 schedules need.  ``devices > 1``: ``plan`` is the
+    per-device sub-batch's, and the model runs batch-sharded."""
     bound = bind_params(plan, params, fold_bn=fold_bn, use_kernel=use_kernel)
     return CompiledModel(plan=plan, params=bound, dispatch=dispatch,
-                         use_kernel=use_kernel)
+                         use_kernel=use_kernel, devices=devices)

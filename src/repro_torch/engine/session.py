@@ -59,9 +59,13 @@ broken or unsupported artifact :class:`ArtifactError`; both subclass
 ``ValueError``.  Older artifacts load through the reference's migration
 chain (``register_migration``: v1 -> v5); one whose checksums migrated to
 ``None`` loads with one :class:`UnverifiedArtifactWarning`, and a re-save
-backfills them.  A future version is refused.  Sessions batch-sharded over
-several devices (the manifest's ``"devices"``) wait for the multi-chip
-slice (ROADMAP A10b).
+backfills them.  A future version is refused.
+
+``devices=D`` batch-shards every specialization over D devices
+(``engine.executor.CompiledModel``): a bucket of B is planned at its
+per-device sub-batch B/D, so every bucket must divide by D.  The manifest
+keeps ``"devices"``; ``load(devices=)`` re-targets an artifact to another
+count by re-planning from its packed source.
 """
 from __future__ import annotations
 
@@ -85,7 +89,8 @@ from repro_torch.core.local_search import ScheduleDatabase
 from repro_torch.core.pipeline import MODES, Pipeline, Plan
 from repro_torch.core.schedule import ConvSchedule
 from repro_torch.core.transform_elim import PlannedGraph
-from repro_torch.engine.executor import CompiledModel, compile_model
+from repro_torch.engine.executor import (CompiledModel, compile_model,
+                                         shard_devices)
 from repro_torch.engine.telemetry import SizeHistogram
 from repro_torch.nn.init import Params, init_params
 
@@ -271,14 +276,6 @@ def fresh_tmp(path: Path) -> Path:
     return tmp
 
 
-def refuse_devices(devices) -> None:
-    if devices not in (None, 1):
-        raise ArtifactError(
-            f"devices={devices}: batch-sharded sessions wait for the "
-            "multi-chip slice (ROADMAP A10b); the port loads devices=1 "
-            "artifacts")
-
-
 # ---------------------------------------------------------------------------
 # Plan / graph (de)serialization — the reference's JSON format
 # ---------------------------------------------------------------------------
@@ -404,7 +401,8 @@ class InferenceSession:
                  dtype: str = "fp32",
                  use_kernel: bool = True,
                  model_name: Optional[str] = None,
-                 device="cuda") -> None:
+                 device="cuda", devices: int = 1) -> None:
+        shard_devices(devices, device)
         if dtype not in SESSION_DTYPES:
             raise ValueError(f"dtype {dtype!r} not in {SESSION_DTYPES}")
         if dtype == "int8" and use_kernel:
@@ -425,6 +423,8 @@ class InferenceSession:
         self.machine = machine or machine_for(use_kernel)
         # where the weights live, the model runs and measured tuning times
         self.device = torch.device(device)
+        # batch-sharded over this many devices (engine.executor)
+        self.devices = int(devices)
         self.dispatch = dispatch
         # "int8": specializations enumerate quantized schedules; the search
         # decides per conv, so the bound plan may be mixed-precision
@@ -460,13 +460,25 @@ class InferenceSession:
     def _shapes_for(self, batch: int) -> Dict[str, Tuple[int, ...]]:
         return {k: (batch,) + v[1:] for k, v in self._base_shapes.items()}
 
+    def _check_divisible(self, batch: int) -> None:
+        if self.devices > 1 and batch % self.devices:
+            raise ValueError(
+                f"batch {batch} is not divisible by devices="
+                f"{self.devices}: a bucket of size B on D devices means a "
+                "per-device sub-batch of B/D, so every specialized bucket "
+                "must divide evenly (pick a divisible bucket set, or "
+                "compile with devices=1)")
+
     def specialize(self, batch: int) -> CompiledModel:
         """The executable for one batch size, planning+binding on first
-        use.  Double-checked under the session lock, so concurrent callers
-        of an unseen batch size plan+compile it exactly once."""
+        use.  With ``devices=D`` the plan is built at the per-device
+        sub-batch ``batch // D``, so ``batch`` must divide by D.
+        Double-checked under the session lock, so concurrent callers of an
+        unseen batch size plan+compile it exactly once."""
         m = self._specialized.get(batch)     # lock-free fast path
         if m is not None:
             return m
+        self._check_divisible(batch)
         with self._lock:
             m = self._specialized.get(batch)
             if m is not None:                # another thread won the race
@@ -478,7 +490,8 @@ class InferenceSession:
                     "source graph to re-plan; save the artifact with this "
                     "batch size or with include_source=True")
             plan = self.pipeline.run(
-                self._graph, self._shapes_for(batch), db=self.db,
+                self._graph, self._shapes_for(batch // self.devices),
+                db=self.db,
                 tuning=self.tuning, quantize=(self.dtype == "int8"),
                 transform_bw=self.transform_bw, machine=self.machine,
                 search_budget=self.search_budget, device=self.device,
@@ -489,7 +502,8 @@ class InferenceSession:
                 # specializations and kept in the saved artifact
                 self.transform_bw = plan.report.transform_bw
             m = compile_model(plan, self._params, dispatch=self.dispatch,
-                              use_kernel=self.use_kernel)
+                              use_kernel=self.use_kernel,
+                              devices=self.devices)
             self._specialized[batch] = m
             return m
 
@@ -581,7 +595,8 @@ class InferenceSession:
                     "buckets='auto' needs recorded traffic: add arrival "
                     "sizes to session.traffic, or pass traffic= a "
                     "histogram")
-            solved = traffic_mod.solve_buckets(counts)
+            solved = traffic_mod.solve_buckets(counts,
+                                               devices=self.devices)
             meta = {"mode": "auto",
                     "histogram": {str(s): c
                                   for s, c in sorted(counts.items())},
@@ -664,7 +679,7 @@ class InferenceSession:
             # what the reference's CPU needs to run its Pallas path
             "interpret": True,
             "dispatch": self.dispatch,
-            "devices": 1,
+            "devices": self.devices,
             "specializations": specs,
             "quantized": quantized,
             "source": source,
@@ -684,16 +699,20 @@ class InferenceSession:
         search, no weight transformation happens.  Older versions migrate;
         future versions are refused.  If the artifact packs its source,
         the loaded session is not frozen and may specialize unseen batch
-        sizes on the H100 machine model of its engine.  ``devices`` other
-        than 1 waits for the multi-chip slice (ROADMAP A10b)."""
+        sizes on the H100 machine model of its engine.
+
+        ``devices`` re-targets the artifact to another device count (one
+        artifact at every count).  Plans are built at the per-device
+        sub-batch, so a re-targeted load drops the saved specializations
+        and re-plans from the packed source, with zero schedule searches
+        where the artifact's database holds the workloads; it therefore
+        needs a source-packed artifact."""
         path = Path(path)
-        refuse_devices(devices)
         manifest = read_manifest(path)
         if manifest.get("lm"):
             raise ArtifactError(
                 f"{path} is an LM artifact (seq-bucketed prefill + decode); "
                 "load it with repro_torch.engine.LMSession.load")
-        refuse_devices(manifest.get("devices", 1))
         verify_checksums(path, manifest)
         db = ScheduleDatabase()
         db.load_blob(manifest.get("db", {}))
@@ -710,6 +729,14 @@ class InferenceSession:
                     f"corrupt or incomplete: {e}") from e
             params = _params_from_flat(leaves, device)
             pipeline = Pipeline.preset(source.get("pipeline") or "fusion")
+        saved_devices = manifest.get("devices", 1)
+        retarget = devices is not None and devices != saved_devices
+        if retarget and source is None:
+            raise ValueError(
+                f"artifact was saved at devices={saved_devices} and packs "
+                f"no source; cannot re-target to devices={devices} — its "
+                "plans embed the per-device sub-batch shapes.  Re-save "
+                "with include_source=True")
         sess = cls(graph=graph,
                    base_shapes={k: tuple(v) for k, v in
                                 manifest["input_spec"].items()},
@@ -722,7 +749,12 @@ class InferenceSession:
                    dtype=(manifest.get("quantized") or {}).get("dtype",
                                                                "fp32"),
                    use_kernel=bool(manifest.get("use_pallas", False)),
-                   model_name=manifest.get("model"), device=device)
+                   model_name=manifest.get("model"), device=device,
+                   devices=devices if retarget else saved_devices)
+        if retarget:
+            # the saved plans are the old count's per-device sub-batch
+            # shapes; re-specialize from the packed source instead
+            return sess
         store = CheckpointStore(path / "weights")
         specs = manifest.get("specializations")
         if not isinstance(specs, dict):
@@ -754,7 +786,8 @@ class InferenceSession:
                     f"corrupt or incomplete: {e}") from e
             sess._specialized[batch] = CompiledModel(
                 plan=plan, params=_params_from_flat(leaves, device),
-                dispatch=sess.dispatch, use_kernel=sess.use_kernel)
+                dispatch=sess.dispatch, use_kernel=sess.use_kernel,
+                devices=sess.devices)
         return sess
 
 
@@ -781,6 +814,7 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
             device="cuda",
             dtype: str = "fp32",
             use_kernel: bool = True,
+            devices: int = 1,
             eager: bool = True) -> Union[InferenceSession, "LMSession"]:
     """Build an :class:`InferenceSession` for a model.
 
@@ -830,6 +864,11 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
                 patch_gemm, and the int8 forms) as torch ops, the
                 reference's ``use_pallas=False`` path.  The reference's
                 default is the lowerings; the port's is the kernel
+    devices     batch-shard every specialization over this many devices
+                (``engine.executor.CompiledModel``): on "cuda" cards
+                ``cuda:0`` to ``cuda:D-1`` (fewer visible raises), on
+                "cpu" D shards in turn; each runs the plan built for its
+                B/devices rows, so every batch size must divide by it
     eager       plan + bind the input_spec's batch size now (default); the
                 session still specializes other batch sizes on demand
     """
@@ -895,6 +934,7 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
         # read-only snapshot: the session persists its database inside the
         # artifact; cache misses must not rewrite the source file
         db.path = None
+    shard_devices(devices, device)
     if params is None:
         params = init_params(graph, shapes, seed=seed, device=device)
     sess = InferenceSession(
@@ -903,7 +943,13 @@ def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
         tuning=tuning, transform_bw=transform_bw,
         search_budget=search_budget, machine=machine,
         dispatch=dispatch, dtype=dtype, use_kernel=use_kernel,
-        model_name=model_name, device=device)
+        model_name=model_name, device=device, devices=devices)
     if eager:
-        sess.specialize(next(iter(shapes.values()))[0])
+        base = next(iter(shapes.values()))[0]
+        if devices > 1 and base % devices:
+            raise ValueError(
+                f"input_spec batch {base} is not divisible by devices="
+                f"{devices}; pass a divisible batch (or eager=False and "
+                "specialize divisible buckets yourself)")
+        sess.specialize(base)
     return sess

@@ -12,12 +12,26 @@ port of the reference's ``repro/launch/cpu.py``.
   suppression.  Warn-don't-fail when tcmalloc is not installed.  The
   reference's preset also sets ``TF_CPP_MIN_LOG_LEVEL``, which silences
   TF/XLA's C++ logs; this process runs neither, so the key is left out;
-* :func:`check_devices` — the port's counterpart of ``--devices``.  The
-  reference forces XLA to show host cores as devices
-  (``configure_cpu_devices`` and its ``XLA_FLAGS`` helpers), which has no
-  PyTorch counterpart; here the count is checked against the visible
-  cards, and more than one device waits for sharded sessions (ROADMAP
-  A10b).
+* :func:`check_devices` — the port's counterpart of ``--devices``: the
+  count is checked against the visible cards (``cuda:0`` to
+  ``cuda:n-1``), and on the CPU it is the number of shards that a
+  batch-sharded session runs in turn.
+
+The reference's XLA-flag helpers make XLA show host cores as devices
+before the backend starts.  None has a caller in the port, so none is
+ported; what stands in for each:
+
+* ``DEVICE_COUNT_FLAG`` (``--xla_force_host_platform_device_count``): a
+  torch process sees its cards from ``CUDA_VISIBLE_DEVICES`` when CUDA
+  starts, and there is no flag that makes host cores into devices;
+* ``merge_xla_flag`` / ``parse_xla_flag`` (edit and read that flag in
+  ``XLA_FLAGS``): ``CUDA_VISIBLE_DEVICES`` is set by whoever starts the
+  process, and ``torch.cuda.device_count()`` reads it;
+* ``configure_cpu_devices(n)`` (set the flag before JAX starts): on the
+  CPU a session's ``devices`` alone sets its number of shards, which run
+  in turn, so nothing needs configuring before torch starts;
+* ``configured_device_count()``: ``torch.cuda.device_count()`` on the
+  card, and the session's ``devices`` on the CPU.
 
 On the card's host a worker thread walks the graph and launches the
 kernels, so keeping it on its own cores keeps the scheduler from migrating
@@ -56,28 +70,13 @@ TCMALLOC_CANDIDATES = (
 def check_devices(n: int, device="cuda") -> int:
     """Check that ``n`` devices of ``device``'s type can serve this process
     and return ``n``.  ``n < 1`` raises ``ValueError``; on ``"cuda"``,
-    fewer visible cards than ``n`` raises ``RuntimeError`` (there is no
-    fallback to the CPU); ``n > 1`` raises ``NotImplementedError``: a
-    session sharded over several devices waits for the multi-chip slice
-    (ROADMAP A10b)."""
-    import torch
+    fewer visible cards than ``n`` raises ``RuntimeError`` naming both
+    counts and ``CUDA_VISIBLE_DEVICES`` (there is no fallback to the CPU);
+    on ``"cpu"`` any ``n`` serves (``engine.executor.shard_devices``)."""
+    from repro_torch.engine.executor import shard_devices
 
-    n = int(n)
-    if n < 1:
-        raise ValueError(f"device count must be >= 1, got {n}")
-    if torch.device(device).type == "cuda":
-        found = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if found < n:
-            raise RuntimeError(
-                f"{n} CUDA device(s) requested, {found} visible; run on a "
-                "host with the card, or pass --device cpu for the kernels' "
-                "plain versions")
-    if n > 1:
-        raise NotImplementedError(
-            f"devices={n}: sharded sessions (one session over several "
-            "devices) wait for the multi-chip slice (ROADMAP A10b); serve "
-            "replicas with --workers instead")
-    return n
+    shard_devices(n, device)
+    return int(n)
 
 
 # ---------------------------------------------------------------------------

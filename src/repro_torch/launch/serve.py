@@ -22,9 +22,11 @@ Everything runs on ``--device`` (default ``cuda``); with no card there it
 raises rather than fall back to the CPU, which ``--device cpu`` asks for
 (the kernels' plain versions).  ``--workers N`` runs N driver workers over
 one queue (each on its own CUDA stream), and ``--pin-workers`` gives each
-worker its own CPU affinity set.  ``--devices`` is checked against the
-visible cards (``launch.cpu.check_devices``): one device per session until
-sharded sessions land.  The allocator env preset
+worker its own CPU affinity set.  ``--devices D`` is checked against the
+visible cards (``launch.cpu.check_devices``) and reaches the session: a CNN
+artifact is loaded re-targeted to D devices (batch-sharded over
+``cuda:0`` to ``cuda:D-1``, or D shards in turn on the CPU), and without
+it at the count it was saved at.  The allocator env preset
 (``launch.cpu.apply_serving_env``: tcmalloc LD_PRELOAD detection, alloc-
 report hygiene — warn, never fail) is applied on every serve.
 
@@ -39,7 +41,9 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import json
 import time
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -79,7 +83,7 @@ def serve_artifact(path: str, n_requests: int, *, max_batch: int = 8,
                    dtype: str = None, trace: str = "uniform",
                    priority_default: str = "standard",
                    buckets: str = None, stats_interval: float = None,
-                   device="cuda"):
+                   device="cuda", devices: Optional[int] = None):
     """Cold-start CNN serving through the async dynamic-batching driver:
     load the compiled session artifact onto ``device``, pump a stream of
     single-image requests through a bounded queue (client-side
@@ -101,9 +105,13 @@ def serve_artifact(path: str, n_requests: int, *, max_batch: int = 8,
     unlabeled requests, ``buckets="auto"`` re-saves the artifact after
     the run with the bucket set solved from the *measured* arrival
     histogram, and ``stats_interval`` prints live telemetry snapshots
-    from a daemon thread while the stream is in flight."""
+    from a daemon thread while the stream is in flight.
+
+    ``devices`` re-targets the artifact to that many devices (its source
+    packed), its saved buckets planned again at load; None keeps the
+    count it was saved at."""
     apply_serving_env()
-    check_devices(1, device)
+    check_devices(devices or 1, device)
     from repro_torch.core.local_search import search_calls
     from repro_torch.engine import (AsyncServer, DynamicBatchPolicy,
                                     InferenceSession, QueueFullError,
@@ -112,10 +120,18 @@ def serve_artifact(path: str, n_requests: int, *, max_batch: int = 8,
 
     if n_requests < 1:
         raise ValueError(f"--requests must be >= 1, got {n_requests}")
-    n_searches = search_calls()
     t0 = time.perf_counter()
-    sess = InferenceSession.load(path, device=device)
+    sess = InferenceSession.load(path, device=device, devices=devices)
+    if not sess.batch_sizes:
+        # re-targeted to another device count: the saved buckets (each
+        # rounded up to a multiple of it) are planned again from the
+        # packed source as part of the load; serving then searches nothing
+        saved = json.loads((Path(path) / "manifest.json").read_text())
+        for b in sorted({-(-int(b) // sess.devices) * sess.devices
+                         for b in saved["specializations"]}):
+            sess.specialize(b)
     t_load = time.perf_counter() - t0
+    n_searches = search_calls()
     if dtype is not None and sess.dtype != dtype:
         raise ValueError(
             f"--dtype {dtype} requested but artifact {path} was compiled "
@@ -210,7 +226,8 @@ def serve_artifact(path: str, n_requests: int, *, max_batch: int = 8,
     print(f"artifact={path} model={sess.model_name or '?'} "
           f"dtype={sess.dtype} "
           f"load={t_load * 1e3:.0f} ms (zero search, zero re-binding) "
-          f"buckets={sess.batch_sizes} devices=1 device={sess.device} "
+          f"buckets={sess.batch_sizes} devices={sess.devices} "
+          f"device={sess.device} "
           f"workers={workers}")
     print(f"served {st.n_completed}/{n_requests} requests in "
           f"{st.n_batches} batches "
@@ -232,7 +249,7 @@ def serve_artifact(path: str, n_requests: int, *, max_batch: int = 8,
         hist = st.arrival_hist.counts()
         old = sorted(sess.batch_sizes)
         try:
-            learned = solve_buckets(hist)
+            learned = solve_buckets(hist, devices=sess.devices)
             sess.save(path, buckets="auto", traffic=st.arrival_hist)
         except RuntimeError as e:
             print(f"--buckets auto skipped: {e} (save the artifact with "
@@ -251,7 +268,8 @@ def serve_lm_artifact(path: str, n_requests: int, *, gen: int = 8,
                       max_queue: int = 64, deadline_ms: float = None,
                       retry_budget: int = 2, backoff_ms: float = 10.0,
                       watchdog_ms: float = None, show_health: bool = False,
-                      priority_default: str = "standard", device="cuda"):
+                      priority_default: str = "standard", device="cuda",
+                      devices: Optional[int] = None):
     """Cold-start LM serving: load the seq-bucketed ``LMSession``
     artifact onto ``device``, prewarm every prefill bucket + the decode
     step, then stream ``n_requests`` greedy generations through
@@ -259,9 +277,11 @@ def serve_lm_artifact(path: str, n_requests: int, *, gen: int = 8,
     length, catches up through decode, and its tokens arrive on a
     :class:`TokenStream` as the worker produces them.  The whole run is
     zero schedule searches (checked), mirroring the CNN cold-start path.
-    Returns the count of completed generations."""
+    ``devices`` is checked against the visible cards; an LM session is
+    not batch-sharded and runs on the first.  Returns the count of
+    completed generations."""
     apply_serving_env()
-    check_devices(1, device)
+    check_devices(devices or 1, device)
     from repro_torch.core.local_search import search_calls
     from repro_torch.engine import (AsyncServer, DynamicBatchPolicy,
                                     LMSession, QueueFullError, RetryPolicy)
@@ -438,9 +458,9 @@ def main(argv=None):
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request deadline; queued past it fails typed")
     ap.add_argument("--devices", type=int, default=None,
-                    help="devices one session spans, checked against the "
-                         "visible cards; only 1 until sharded sessions "
-                         "land (use --workers for replicas)")
+                    help="devices one CNN session is batch-sharded over, "
+                         "checked against the visible cards (default: the "
+                         "count the artifact was saved at)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model runs: 'cuda' (default) launches "
                          "the hand-written kernels and raises without a "
@@ -505,7 +525,7 @@ def main(argv=None):
                                  watchdog_ms=args.watchdog_ms,
                                  show_health=args.health,
                                  priority_default=args.priority_default,
-                                 device=args.device)
+                                 device=args.device, devices=args.devices)
     if args.artifact:
         return serve_artifact(args.artifact, args.requests,
                               max_batch=args.max_batch,
@@ -524,7 +544,7 @@ def main(argv=None):
                               priority_default=args.priority_default,
                               buckets=args.buckets,
                               stats_interval=args.stats_interval,
-                              device=args.device)
+                              device=args.device, devices=args.devices)
 
     cfg = make_reduced(ARCHS[args.arch])
     params = model.init_params(cfg, 0, args.device)

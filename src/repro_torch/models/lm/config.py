@@ -40,9 +40,11 @@ class LMConfig:
     tie_embeddings: bool = False
     dtype: str = "float32"     # smoke default; production configs use bf16
     # remat and remat_policy are read by the training forward
-    # (models/lm/model.py); unroll_layers and shard_strategy are multi-chip
-    # settings (ROADMAP A10b), kept so configs and their JSON round-trip
-    # with the reference's, read by nothing in the port yet
+    # (models/lm/model.py); shard_strategy by the dry run and its mesh
+    # context (launch/dryrun.py, models/lm/sharding.py::use_mesh);
+    # unroll_layers changes nothing in the port, whose layer loop is
+    # already Python, and is kept so configs and their JSON round-trip
+    # with the reference's
     remat: bool = False        # activation checkpointing in train_step
     shard_strategy: str = "tp"   # "tp" | "pure_dp" (model axis as extra DP)
     fused_gates: bool = False    # rglru: one (W, 2W) gate matmul, not two

@@ -16,11 +16,17 @@ scattered into an (E, capacity, d) buffer, run through batched expert
 products and combined with their top-k gates.  Cross-attention (whisper's
 decoder) is ``flash_attention`` too, its keys the encoder's S_enc
 positions against S queries, S_enc != S: B3 takes a kv length of its own.
-On one card the reference's ``shard_hint`` calls are the identity and are
-dropped (ROADMAP A10b).
+
+Under a mesh (``sharding.use_mesh``) the activations are DTensors: the
+reference's ``shard_hint`` and ``shard_attn_q`` calls redistribute them;
+B3, B2 and decode attention run on their local shards
+(``sharding.local_kernel``), and the MoE's routing, dispatch and combine
+on every rank over all tokens, its expert products expert-parallel.
+Outside a mesh those calls are the identity.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -30,8 +36,13 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.kernels.ops import dense_softmax
 from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.lm.sharding import (BATCH, MODEL, attn_kernel_spec,
+                                            current_mesh, local_kernel,
+                                            shard_attn_q, shard_heads,
+                                            shard_hint)
 
 __all__ = ["NEG_INF", "apply_norm", "attention", "decode_attention",
+           "sharded_decode_attention", "sharded_flash_attention",
            "flash_attention", "layernorm", "mlp", "moe_capacity", "moe_ffn",
            "rmsnorm", "rope"]
 
@@ -112,6 +123,35 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, hq, 1, d).to(q.dtype)
 
 
+def _contiguous(fn):
+    """``fn`` on contiguous copies of its tensors (a DTensor's local shard
+    need not be one, and the kernels read raw pointers)."""
+    return lambda *ts: fn(*(t.contiguous() for t in ts))
+
+
+def sharded_flash_attention(q, k, v, **kw) -> torch.Tensor:
+    """``flash_attention`` (B3); under a mesh on the local shards of q, k
+    and v (``sharding.attn_kernel_spec``)."""
+    fn = _contiguous(functools.partial(flash_attention, **kw))
+    mesh = current_mesh()
+    if mesh is None:
+        return fn(q, k, v)
+    spec = attn_kernel_spec(mesh, q.shape[1], k.shape[1])
+    return local_kernel(fn, (q, k, v), (spec,) * 3)
+
+
+def sharded_decode_attention(q, k_cache, v_cache, cache_len
+                             ) -> torch.Tensor:
+    """``decode_attention``; under a mesh on the local shards of q and the
+    cache, under B3's spec (``sharding.attn_kernel_spec``)."""
+    fn = functools.partial(decode_attention, cache_len=cache_len)
+    mesh = current_mesh()
+    if mesh is None:
+        return fn(q, k_cache, v_cache)
+    spec = attn_kernel_spec(mesh, q.shape[1], k_cache.shape[1])
+    return local_kernel(fn, (q, k_cache, v_cache), (spec,) * 3)
+
+
 # ---------------------------------------------------------------------------
 # Attention block (projections + rope + flash / cache paths)
 # ---------------------------------------------------------------------------
@@ -136,14 +176,14 @@ def attention(x: torch.Tensor, p: Dict, cfg: LMConfig, *,
         y = x @ p[f"w{name}"]
         if cfg.qkv_bias and f"b{name}" in p:
             y = y + p[f"b{name}"]
-        return y.reshape(b, s, heads, hd)
+        return shard_heads(y, heads).reshape(b, s, heads, hd)
 
     q = proj("q", h)
     if cross_kv is not None:
         ck, cv = cross_kv
         # the reference's flash_attention_xla with its default chunks
-        out = flash_attention(q.transpose(1, 2).contiguous(),
-                              ck.contiguous(), cv.contiguous(), causal=False)
+        out = sharded_flash_attention(q.transpose(1, 2), ck, cv,
+                                      causal=False)
         return out.transpose(1, 2).reshape(b, s, h * hd) @ p["wo"], None
     key = proj("k", kv)
     val = proj("v", kv)
@@ -154,14 +194,20 @@ def attention(x: torch.Tensor, p: Dict, cfg: LMConfig, *,
     qt = q.transpose(1, 2)                             # (B, H, S, hd)
     if kv_cache is not None:
         k_cache, v_cache = kv_cache
-        out = decode_attention(qt, k_cache, v_cache, cache_len)
+        out = sharded_decode_attention(qt, k_cache, v_cache, cache_len)
         new_kv = (key.transpose(1, 2), val.transpose(1, 2))
     else:
         kt = key.transpose(1, 2).contiguous()
         vt = val.transpose(1, 2).contiguous()
-        out = flash_attention(qt.contiguous(), kt, vt, causal=causal,
-                              window=window, q_chunk=cfg.attn_q_chunk,
-                              kv_chunk=cfg.attn_kv_chunk)
+        # per-op activation layout: heads on the model axis where they
+        # divide it, else sequence-parallel q (kv gathered; cheap for GQA)
+        qt = shard_attn_q(qt, h)
+        kt = shard_attn_q(kt, kv)
+        vt = shard_attn_q(vt, kv)
+        out = sharded_flash_attention(qt, kt, vt, causal=causal,
+                                      window=window,
+                                      q_chunk=cfg.attn_q_chunk,
+                                      kv_chunk=cfg.attn_kv_chunk)
         new_kv = (kt, vt)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     return out @ p["wo"], new_kv
@@ -190,25 +236,23 @@ def moe_capacity(n_tokens: int, cfg: LMConfig) -> int:
     return max(floor, min(cap, n_tokens * cfg.top_k))
 
 
-def moe_ffn(x: torch.Tensor, p: Dict, cfg: LMConfig
-            ) -> Tuple[torch.Tensor, Dict]:
-    """x: (T, d) token-major.  Returns (out, aux), where aux carries the
-    load-balance loss term (Shazeer-style f.P) and the dropped share of
-    the token-expert assignments."""
-    t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    cap = moe_capacity(t, cfg)
-    dev = x.device
-
-    # the reference's fp32 logits of x.astype(f32) @ router.astype(f32): B2
-    # sums in fp32 whatever the operands' type, so bf16 operands pass as
-    # they are (the product of two bf16 numbers is exact in fp32)
-    probs = dense_softmax(x, p["router"], out_dtype=torch.float32)  # (T, E)
-    gates, eids = torch.topk(probs, k, dim=-1)                 # descending
+def _top_k(probs: torch.Tensor, k: int):
+    """The top-k gates of each row (descending), renormalised, and their
+    experts."""
+    gates, eids = torch.topk(probs, k, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return gates, eids
 
-    # rank each assignment within its expert, token-major and rank-minor,
-    # as the reference's stable argsort does
+
+def _dispatch(x: torch.Tensor, eids: torch.Tensor, e: int, cap: int):
+    """Scatter the (T, d) tokens into the (E, capacity, d) buffer of their
+    chosen experts: each assignment ranked within its expert, token-major
+    and rank-minor, as the reference's stable argsort does, past the
+    capacity dropped.  Also each assignment's expert, slot and kept flag,
+    and the fraction routed to each expert (the load-balance loss's f)."""
+    t, d = x.shape
+    k = eids.shape[1]
+    dev = x.device
     flat_e = eids.reshape(-1)                                  # (T*K,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
@@ -223,6 +267,46 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: LMConfig
     buf = torch.zeros((e, cap, d), dtype=x.dtype, device=dev)
     contrib = torch.where(keep[:, None], x[tok], 0)
     buf.index_put_((flat_e, safe_pos), contrib, accumulate=True)
+    f = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, flat_e, keep.float()) / (t * k)
+    return buf, flat_e, safe_pos, keep, f
+
+
+def _combine(out_buf, flat_e, safe_pos, keep, gates, dtype):
+    """Each token's kept expert outputs, weighted by its gates."""
+    t, k = gates.shape
+    d = out_buf.shape[-1]
+    y_tok = out_buf[flat_e, safe_pos] * keep[:, None]         # (T*K, d)
+    return (y_tok.reshape(t, k, d) * gates[..., None].to(dtype)).sum(dim=1)
+
+
+def moe_ffn(x: torch.Tensor, p: Dict, cfg: LMConfig
+            ) -> Tuple[torch.Tensor, Dict]:
+    """x: (T, d) token-major.  Returns (out, aux), where aux carries the
+    load-balance loss term (Shazeer-style f.P) and the dropped share of
+    the token-expert assignments.  Under a mesh the routing, the dispatch
+    and the combine run on every rank over all T tokens (the capacity is
+    the whole batch's), and the expert products expert-parallel."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(t, cfg)
+    everywhere = (None, None)
+
+    # the reference's fp32 logits of x.astype(f32) @ router.astype(f32): B2
+    # sums in fp32 whatever the operands' type, so bf16 operands pass as
+    # they are (the product of two bf16 numbers is exact in fp32)
+    probs = local_kernel(                                      # (T, E)
+        _contiguous(functools.partial(dense_softmax,
+                                      out_dtype=torch.float32)),
+        (x, p["router"]), ((BATCH, None), everywhere))
+    gates, eids = local_kernel(functools.partial(_top_k, k=k), (probs,),
+                               ((BATCH, None),), out_like=(0, 0))
+    buf, flat_e, safe_pos, keep, f = local_kernel(
+        functools.partial(_dispatch, e=e, cap=cap), (x, eids),
+        (everywhere, everywhere), out_like=(0,) * 5)
+    # expert-parallel buffer layout: E on the model axis, capacity rows on
+    # the DP axes (the dispatch becomes the EP all-to-all)
+    buf = shard_hint(buf, MODEL, BATCH, None)
 
     # batched expert products: plain large GEMMs, as in the reference
     ex = p["experts"]
@@ -232,12 +316,11 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg: LMConfig
         hdn = F.gelu(torch.bmm(buf, ex["wu"]), approximate="tanh")
     out_buf = torch.bmm(hdn, ex["wd"])
 
-    y_tok = out_buf[flat_e, safe_pos] * keep[:, None]         # (T*K, d)
-    y = (y_tok.reshape(t, k, d) * gates[..., None].to(x.dtype)).sum(dim=1)
+    y = local_kernel(functools.partial(_combine, dtype=x.dtype),
+                     (out_buf, flat_e, safe_pos, keep, gates),
+                     ((None,) * 3, (None,), (None,), (None,), everywhere))
 
     # load-balance loss: E * sum_e fraction_routed(e) * mean_prob(e)
-    f = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, flat_e, keep.float()) / (t * k)
     aux = {"lb_loss": e * (f * probs.mean(dim=0)).sum(),
            "dropped_frac": 1.0 - keep.float().mean()}
     return y, aux

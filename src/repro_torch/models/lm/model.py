@@ -26,8 +26,12 @@ encdec, vlm).
   put before the text's.  ``forward``, ``prefill`` and ``decode_step``
   return the logits only; ``loss_fn`` (training) also takes the summed MoE
   load-balance loss, through ``_forward_with_aux``, as the reference's
-  ``forward`` returns it.  On one card the reference's ``shard_hint`` calls
-  are the identity and are dropped (ROADMAP A10b).
+  ``forward`` returns it.
+* Every activation passes through ``sharding.shard_hint`` where the
+  reference's does, so one model runs on one device and, its parameters
+  DTensors under ``sharding.use_mesh``, over a mesh; outside a mesh the
+  hints are the identity.  The reference's ``unroll_layers`` changes
+  nothing here: the layer loop is already Python.
 * Each stacked leaf is unbound once a forward (``torch.unbind``, whose
   backward is one stack), not indexed once a layer (under autograd each
   index's backward would fill a zero tensor the size of the whole
@@ -51,6 +55,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import rglru, ssm
 from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.lm.sharding import (BATCH, MODEL,
+                                            distribute_like_inputs,
+                                            shard_heads, shard_hint)
 
 # the families whose layers are stacked on a leading axis
 STACKED = ("dense", "moe", "ssm", "vlm")
@@ -334,11 +341,12 @@ def _dense_layer_fwd(x, lp, cfg: LMConfig, positions):
     """One dense, vlm or moe layer; also returns its rope'd K/V for a
     cache and its load-balance loss (None but for moe)."""
     h = L.apply_norm(x, lp["ln1"], cfg)
+    h = shard_hint(h, BATCH, None, None)
     attn_out, kv = L.attention(h, lp["attn"], cfg, positions=positions)
     x = x + attn_out
     h = L.apply_norm(x, lp["ln2"], cfg)
     y, lb = _ffn(h, lp, cfg)
-    return x + y, kv, lb
+    return shard_hint(x + y, BATCH, None, None), kv, lb
 
 
 def _ssm_layer_fwd(x, lp, cfg: LMConfig):
@@ -441,8 +449,8 @@ def _cross_kv(lp, cfg: LMConfig, enc_out):
     encoder's output (no bias, as in the reference)."""
     b, s, _ = enc_out.shape
     kv, hd = cfg.n_kv, cfg.head_dim
-    k = (enc_out @ lp["xattn"]["wk"]).reshape(b, s, kv, hd)
-    v = (enc_out @ lp["xattn"]["wv"]).reshape(b, s, kv, hd)
+    k = shard_heads(enc_out @ lp["xattn"]["wk"], kv).reshape(b, s, kv, hd)
+    v = shard_heads(enc_out @ lp["xattn"]["wv"], kv).reshape(b, s, kv, hd)
     return (k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
 
 
@@ -470,8 +478,10 @@ def _run_decoder(params, cfg: LMConfig, x, positions, enc_out, cache=None):
 def _logits(params, cfg: LMConfig, x):
     x = L.apply_norm(x, params["final_norm"], cfg)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+        out = x @ params["embed"].T
+    else:
+        out = x @ params["lm_head"]
+    return shard_hint(out, BATCH, None, MODEL)
 
 
 def _embed(params, cfg: LMConfig, tokens, img_embeds):
@@ -481,7 +491,7 @@ def _embed(params, cfg: LMConfig, tokens, img_embeds):
     if cfg.family == "vlm" and img_embeds is not None:
         x = torch.cat([img_embeds.to(device=x.device, dtype=_dt(cfg)), x],
                       dim=1)
-    return x
+    return shard_hint(x, BATCH, None, None)
 
 
 def _frames(cfg: LMConfig, frames):
@@ -608,7 +618,8 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor, *, max_len: int,
     logits)."""
     frames = _frames(cfg, frames)
     x = _embed(params, cfg, tokens, img_embeds)
-    cache = init_cache(cfg, tokens.shape[0], max_len, x.device)
+    cache = distribute_like_inputs(
+        init_cache(cfg, tokens.shape[0], max_len, x.device), tokens.shape[0])
     x, _ = _run(params, cfg, x, frames, cache=cache)
     # only the last position's logits are returned: the norm and the head
     # act on each position alone, so the others are not computed
@@ -627,15 +638,15 @@ def _token_attn_decode(h, lp_attn, cfg, kc, vc, pos: int, cache_len: int,
     v = h @ lp_attn["wv"]
     if cfg.qkv_bias and "bq" in lp_attn:
         q, k, v = q + lp_attn["bq"], k + lp_attn["bk"], v + lp_attn["bv"]
-    q = q.reshape(b, 1, hq, hd)
-    k = k.reshape(b, 1, kv, hd)
-    v = v.reshape(b, 1, kv, hd)
+    q = shard_heads(q, hq).reshape(b, 1, hq, hd)
+    k = shard_heads(k, kv).reshape(b, 1, kv, hd)
+    v = shard_heads(v, kv).reshape(b, 1, kv, hd)
     posv = torch.full((b, 1), pos, device=h.device)
     q = L.rope(q, posv, cfg.rope_theta)
     k = L.rope(k, posv, cfg.rope_theta)
     write_at = pos % window if window else pos
     _write_kv(kc, vc, (k.transpose(1, 2), v.transpose(1, 2)), write_at)
-    out = L.decode_attention(q.transpose(1, 2), kc, vc, cache_len)
+    out = L.sharded_decode_attention(q.transpose(1, 2), kc, vc, cache_len)
     out = out.transpose(1, 2).reshape(b, 1, hq * hd)
     return out @ lp_attn["wo"]
 
@@ -672,7 +683,7 @@ def decode_step(params, cfg: LMConfig, token: torch.Tensor, cache: Dict,
     """token: (B, 1) integers; pos: the current position index.  Returns
     (logits (B, V), cache), the cache updated in place."""
     pos = int(pos)
-    x = params["embed"][token]
+    x = shard_hint(params["embed"][token], BATCH, None, None)
     if cfg.family == "hybrid":
         for i, lp in enumerate(params["layers_list"]):
             x = _decode_layer(x, lp, cfg, cache["layers"][i], pos)

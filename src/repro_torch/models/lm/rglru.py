@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.lm.sharding import BATCH, MODEL, shard_hint
 from repro_torch.models.lm.ssm import causal_conv1d
 
 _C = 8.0   # Griffin's fixed temperature on the recurrence gate
@@ -93,12 +94,19 @@ def recurrent_block(x: torch.Tensor, p: Dict, cfg: LMConfig, *,
     y = x @ p["wx"]                                     # (B, T, W)
     gate_branch = x @ p["wy"]                           # (B, T, W)
     y, new_conv = causal_conv1d(y, p["conv_w"], conv_state)
+    # keep the whole recurrent branch sharded on W across the block (the
+    # transform-elimination idea applied to the sharding tier)
+    y = shard_hint(y, BATCH, None, MODEL)
+    gate_branch = shard_hint(gate_branch, BATCH, None, MODEL)
     if "w_gates" in p:
         gates = y @ p["w_gates"] + p["b_gates"]
+        gates = shard_hint(gates, BATCH, None, MODEL)
         i_gate, r_gate = torch.chunk(gates, 2, dim=-1)
     else:
         i_gate = y @ p["w_in_gate"] + p["b_in_gate"]
         r_gate = y @ p["w_rec_gate"] + p["b_rec_gate"]
+        i_gate = shard_hint(i_gate, BATCH, None, MODEL)
+        r_gate = shard_hint(r_gate, BATCH, None, MODEL)
     if decode:
         h0 = lru_state if lru_state is not None else torch.zeros(
             (x.shape[0], cfg.lru_width), dtype=torch.float32,

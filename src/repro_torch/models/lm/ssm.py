@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ssd_intra
 from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.lm.sharding import BATCH, local_kernel
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -142,16 +143,31 @@ def mamba2_layer(x: torch.Tensor, p: Dict, cfg: LMConfig, *,
     dt = F.softplus(dt.float() + p["dt_bias"].float())
 
     xh = x_ssm.reshape(bsz, t, nh, hd)
+    # every batch row's SSD is its own: under a mesh each runs on its
+    # shard of the batch (sharding.local_kernel), B4 on plain tensors
+    rows = (BATCH, None, None, None)
     if decode:
-        y, new_state = ssd_decode_step(
-            xh[:, 0], dt[:, 0], p["a_log"], b_mat[:, 0], c_mat[:, 0],
-            ssm_state if ssm_state is not None
-            else torch.zeros((bsz, nh, hd, n), dtype=torch.float32,
-                             device=x.device))
+        if ssm_state is None:
+            ssm_state = torch.zeros((bsz, nh, hd, n), dtype=torch.float32,
+                                    device=x.device)
+        y, new_state = local_kernel(
+            ssd_decode_step,
+            (xh[:, 0], dt[:, 0], p["a_log"], b_mat[:, 0], c_mat[:, 0],
+             ssm_state),
+            (rows[:3], rows[:2], (None,), rows[:2], rows[:2], rows),
+            out_like=(0, 5))
         y = y[:, None]
     else:
-        y, new_state = ssd_chunked(xh, dt, p["a_log"], b_mat, c_mat,
-                                   cfg.ssm_chunk, init_state=ssm_state)
+        args = (xh, dt, p["a_log"], b_mat, c_mat)
+        specs = (rows, rows[:3], (None,), rows[:3], rows[:3])
+        if ssm_state is not None:
+            args, specs = args + (ssm_state,), specs + (rows,)
+
+        def chunked(xh, dt, a_log, b_mat, c_mat, init_state=None):
+            return ssd_chunked(xh, dt, a_log, b_mat, c_mat, cfg.ssm_chunk,
+                               init_state=init_state)
+
+        y, new_state = local_kernel(chunked, args, specs, out_like=(0, 0))
     y = y + p["d_skip"][None, None, :, None] * xh
     y = y.reshape(bsz, t, di)
     # gated RMSNorm (mamba2's norm_before_gate=False formulation)

@@ -146,3 +146,37 @@ def test_chip_smoke_main_phase_on_the_lowerings_runs_on_cpu(dtype):
     assert sum(out["lowering_calls"].values()) == 2 * 53
     assert (dtype == "int8") == any(k.endswith("/int8")
                                     for k in out["lowering_calls"])
+
+
+def test_chip_smoke_multidevice_phase_runs_on_cpu():
+    """chip_smoke's ``phase_multidevice`` at a tiny size, on the CPU:
+    ResNet-18 at 32 compiled with ``devices=1`` bit-identical to a plain
+    session, a ``devices=2`` artifact re-targeted to 1, the refusals of a
+    card that is not there (compile and the command line), and reduced
+    qwen2's prefill and decode step as DTensors over a ``gloo`` group of
+    one, equal to the session's own."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import ARCHS, reduced
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    main_run = {"session": t_compile("resnet-18", (1, 3, 32, 32),
+                                     device="cpu")}
+    lm_run = {"session": t_compile(reduced(ARCHS["qwen2-1.5b"]), (1, 64),
+                                   device="cpu")}
+    smoke.MULTI_PROMPT = 48
+    out = smoke.phase_multidevice("cpu", "cpu", main_run, lm_run,
+                                  model="resnet-18", image=32, small=32,
+                                  requests=2)
+    assert out["b1_launches_per_predict"] == [0, 0]
+    assert out["bit_identical_to_main"] and out["cli_exit"] != 0
+    assert out["retarget"]["max_logit_err_vs_cpu_rel"] <= smoke.LOGIT_TOL
+    assert "1 CUDA device(s) requested, 0 visible" in out["refused"]
+    assert out["backend"] == "gloo" and out["b3_launches_prefill"] == 0
+    assert all(v["bit_identical"] for v in out["lm"].values())
+    import torch.distributed as dist
+    assert not dist.is_initialized()

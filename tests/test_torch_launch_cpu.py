@@ -86,6 +86,8 @@ def test_check_devices_errors():
     # no card here: asking for one raises instead of running on the CPU
     with pytest.raises(RuntimeError, match="0 visible"):
         tcpu.check_devices(1, "cuda")
-    with pytest.raises(NotImplementedError, match="sharded sessions"):
-        tcpu.check_devices(2, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA_VISIBLE_DEVICES"):
+        tcpu.check_devices(2, "cuda")
+    # on the CPU, the shards of a batch-sharded session run in turn
+    assert tcpu.check_devices(2, "cpu") == 2
     assert tcpu.check_devices(1, "cpu") == 1

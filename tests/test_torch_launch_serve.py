@@ -290,9 +290,8 @@ def test_cuda_without_a_card_raises(cnn_artifact):
         serve.main(["--artifact", str(cnn_artifact), "--requests", "1"])
     with pytest.raises(RuntimeError, match="0 visible"):
         serve.serve_artifact(str(cnn_artifact), 1)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        serve.main(["--arch", "qwen2-1.5b", "--device", "cpu",
-                    "--devices", "2"] + ARCH_ARGS)
+    with pytest.raises(RuntimeError, match="2 CUDA device.*0 visible"):
+        serve.main(["--arch", "qwen2-1.5b", "--devices", "2"] + ARCH_ARGS)
 
 
 def test_module_runs_as_a_process():
