@@ -210,7 +210,21 @@ Phases, each a function of a device and a size:
                 parameters as DTensors under ``param_shardings``: a
                 2,048-token ``make_prefill`` (B3 28 launches, sm90) and
                 one ``make_serve_step``, logits held to the session's own
-                prefill and decode step;
+                prefill and decode step; then the train half over a new
+                group of one: qwen2-1.5b and mamba2-130m at full width,
+                2 layers, fp32, batch 1 x 256, and reduced arctic-480b
+                (B2's router), parameters and AdamW state as DTensors:
+                ``loss_and_grads`` (loss and every gradient leaf), one
+                step of ``launch.dryrun.make_train_step`` and one of
+                ``launch.train.make_train_step(compress=True)`` held to
+                the same steps on plain tensors, B3 (fma), B4 and B2
+                launching and their backward calls as in ``train``; the
+                state saved and ``restore(shardings=)``'d onto the mesh,
+                every shard bit-identical and the next step equal; and
+                the three examples of ``repro_torch.examples`` at image
+                32 (B1 on sm90 in ``quickstart`` and
+                ``serve_planned_cnn``; ``train_lm_fault_tolerant``
+                against its run on the CPU);
    train      — A10a on the card (``phase_train``), after every earlier
                 session is released: each kernel's autograd Function
                 against autograd of its plain version (B3 at qwen2-1.5b's
@@ -4866,13 +4880,11 @@ def train_parity(device, model: str, n_layers: int, batch: int, seq: int,
     do the parameters after one AdamW step, within 2 lr (at step 1 the
     update is ~lr · sign(g), and a gradient near 0 may take either sign)
     plus 1e-6 of the leaf's largest value."""
-    from repro_torch.checkpoint.store import _flatten
     from repro_torch.configs import ARCHS
     from repro_torch.data import DataConfig, SyntheticLMStream
     from repro_torch.launch.train import loss_and_grads
     from repro_torch.models.lm.model import init_params, params_to
     from repro_torch.optim import AdamW
-    from repro_torch.optim.adamw import tree_leaves
 
     cfg = dataclasses.replace(base or ARCHS[model], n_layers=n_layers,
                               dtype="float32")
@@ -4892,19 +4904,8 @@ def train_parity(device, model: str, n_layers: int, batch: int, seq: int,
         sides[dev] = (loss, grads, new_p, om["grad_norm"], counts, bwd)
     (rl, rg, rp, rn, _, _), (dl, dg, dp, dn, counts, bwd) = \
         sides[ref_device], sides[device]
-    grad_errs = []
-    # a leaf whose exact gradient is 0 (qwen2's key bias: the softmax is
-    # blind to a shift common to all keys) holds rounding noise only, of
-    # order 2^-24 sqrt(N) of the larger gradients
-    floor = GRAD_FLOOR * max(float(w.abs().max()) for w in tree_leaves(rg))
-    for (name, w), g in zip(_flatten(rg), tree_leaves(dg)):
-        err, share = _grad_share(g.cpu(), w.cpu(), False, floor)
-        grad_errs.append((share, name, err))
-    param_share = 0.0
-    for p, w in zip(tree_leaves(dp), tree_leaves(rp)):
-        p, w = p.cpu(), w.cpu()
-        bound = 2 * TRAIN_LR + 1e-6 * float(w.abs().max())
-        param_share = max(param_share, float((p - w).abs().max()) / bound)
+    worst = _grad_gate(dg, rg)
+    param_share, _ = _param_gate(dp, rp)
     loss_rel = abs(float(dl) / float(rl) - 1)
     # one forward and one backward a layer (mamba2 recomputes each layer
     # under remat, launching B4 again); fp32 attention takes B3's fma
@@ -4918,15 +4919,14 @@ def train_parity(device, model: str, n_layers: int, batch: int, seq: int,
            "dtype": "float32", "remat": cfg.remat,
            "loss": float(dl), "loss_ref": float(rl), "loss_rel": loss_rel,
            "grad_norm": float(dn), "grad_norm_ref": float(rn),
-           "grad_gate_share": max(grad_errs)[0],
-           "grad_worst_leaf": max(grad_errs)[1],
+           "grad_gate_share": worst[0], "grad_worst_leaf": worst[1],
            "grad_rel_tol": GRAD_REL, "param_gate_share": param_share,
            "launches": got_launch, "backward_calls": got_bwd,
            "b3_routes": b3_routes()}
     emit(out)
-    if loss_rel > GRAD_REL or max(grad_errs)[0] > 1.0 or param_share > 1.0:
+    if loss_rel > GRAD_REL or worst[0] > 1.0 or param_share > 1.0:
         raise RuntimeError(f"train parity {cfg.name}: loss rel {loss_rel:.3g}"
-                           f", gradients {max(grad_errs)}, parameters "
+                           f", gradients {worst}, parameters "
                            f"{param_share:.3g} of their gates")
     if got_launch != want_launch or got_bwd != want or \
             (on_card and "flash_attention" in want
@@ -5562,17 +5562,353 @@ def multidevice_lm(device, lm_run: dict, prompt: int = None,
             "lm": errs}
 
 
+# the train half: train_parity's models at its cut (full width, 2 layers,
+# fp32, TRAIN_PARITY's batch x seq) and reduced arctic-480b for B2's
+# router; with ``small``, each model's reduced config at MULTI_TRAIN_SMALL
+MULTI_TRAIN = ("qwen2-1.5b", "mamba2-130m", "arctic-480b")
+MULTI_TRAIN_SMALL = (1, 32)             # batch, seq on the CPU
+MULTI_EXAMPLE_IMAGE = 32                # the CNN examples' image
+MULTI_EXAMPLE_REQUESTS = 8              # serve_planned_cnn's requests
+
+
+def multi_train_configs(small: bool = False) -> list:
+    from repro_torch.configs import ARCHS, reduced
+
+    return [reduced(ARCHS[m]) if small or m == ARCTIC else
+            dataclasses.replace(ARCHS[m], n_layers=TRAIN_PARITY["n_layers"],
+                                dtype="float32")
+            for m in MULTI_TRAIN]
+
+
+def _full(t):
+    """A DTensor's full tensor; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _grad_gate(got, want) -> tuple:
+    """The worst (share of the gate used, leaf, largest abs error) of the
+    gradient tree ``got`` against ``want``: each leaf within GRAD_REL of
+    its largest |want| plus GRAD_FLOOR of the largest gradient of all (a
+    leaf whose exact gradient is 0, qwen2's key bias: the softmax is blind
+    to a shift common to all keys, holds rounding noise only, of order
+    2^-24 sqrt(N) of the larger gradients)."""
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.optim.adamw import tree_leaves
+
+    floor = GRAD_FLOOR * max(float(w.abs().max())
+                             for w in tree_leaves(want))
+    errs = []
+    for (name, w), g in zip(_flatten(want), tree_leaves(got)):
+        err, share = _grad_share(_full(g).to(w.device), w, False, floor)
+        errs.append((share, name, err))
+    return max(errs)
+
+
+def _param_gate(got, want) -> tuple:
+    """(share of the parameter gate used, bit-identical): every leaf of
+    ``got`` within 2 lr (at step 1 the update is ~lr · sign(g), and a
+    gradient near 0 may take either sign) plus 1e-6 of the leaf's largest
+    value of ``want``."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    share, same = 0.0, True
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        g, w = _full(g), _full(w)
+        g = g.to(w.device)
+        bound = 2 * TRAIN_LR + 1e-6 * float(w.abs().max())
+        share = max(share, float((g - w).abs().max()) / bound)
+        same = same and torch.equal(g, w)
+    return share, same
+
+
+def sharded_train_case(device, mesh, cfg, batch: int, seq: int,
+                       tmp: Path) -> dict:
+    """One model's train steps on DTensors over ``mesh`` against the same
+    steps on plain tensors, from the same weights (drawn on the CPU) and
+    ``SyntheticLMStream`` batch: the loss and every gradient leaf of
+    ``launch.train.loss_and_grads`` within GRAD_REL (plus GRAD_FLOOR of
+    the largest gradient), and the parameters after one step of
+    ``launch.dryrun.make_train_step`` and of
+    ``launch.train.make_train_step(compress=True)`` within 2 lr + 1e-6 of
+    the leaf's largest value; the launches and backward calls of the
+    sharded ``loss_and_grads`` those ``train_parity`` expects.  The
+    sharded state after the dry-run step is saved, restored with
+    ``restore(shardings=)`` onto ``mesh`` (every local shard
+    bit-identical to the live state's), and one more step from the
+    restored state held to one from the live state.  Every gate raises."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models.lm import sharding as sh
+    from repro_torch.models.lm.model import init_params, params_to
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime import compression
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    params = params_to(init_params(cfg, 0, "cpu"), device)
+    stream = SyntheticLMStream(DataConfig(batch, seq, cfg.vocab), cfg)
+    data = [{k: torch.from_numpy(v).to(device) for k, v in
+             stream.global_batch(i).items()} for i in (0, 1)]
+    opt = AdamW(lr=TRAIN_LR)
+    dry = dryrun.make_train_step(cfg, opt)
+    comp = train.make_train_step(cfg, opt, compress=True)
+    seconds = {"init": time.perf_counter() - t0}
+    # each sharded result is held to the plain one and let go, so that
+    # at most two copies of the state are alive at a time
+    with sh.use_mesh(mesh, strategy=cfg.shard_strategy), \
+            implicit_replication():
+        t0 = time.perf_counter()
+        specs = sh.param_shardings(mesh, params,
+                                   strategy=cfg.shard_strategy)
+        zspecs = sh.zero_shardings(mesh, opt.init(params),
+                                   strategy=cfg.shard_strategy)
+        dp = sh.distribute(params, specs, mesh)
+        ds = sh.distribute(opt.init(params), zspecs, mesh)
+
+        def on_mesh(b):
+            return {k: distribute_tensor(v, mesh, sh.placements(
+                mesh, sh.leaf_spec(mesh, v.shape, v.shape[0])),
+                src_data_rank=None) for k, v in b.items()}
+
+        reset_counts()
+        dloss, dgrads = train.loss_and_grads(dp, cfg, on_mesh(data[0]))
+        counts, bwd, routes = read_counts(), read_backward(), b3_routes()
+        b2 = b2_routes()
+        sync()
+        seconds["sharded_grads"] = time.perf_counter() - t0
+        loss, grads = train.loss_and_grads(params, cfg, data[0])
+        full = float(_full(dloss))
+        loss_rel = abs(full / float(loss) - 1)
+        worst = _grad_gate(dgrads, grads)
+        grads_same = all(torch.equal(_full(g), w) for g, w in
+                         zip(tree_leaves(dgrads), tree_leaves(grads)))
+        del grads, dgrads
+        t0 = time.perf_counter()
+        dp2, _, _, _, _ = comp(dp, ds, sh.distribute(
+            compression.init_error(params), specs, mesh),
+            on_mesh(data[0]), 1.0)
+        sync()
+        seconds["sharded_compressed_step"] = time.perf_counter() - t0
+        p2, _, _, _, _ = comp(params, opt.init(params),
+                              compression.init_error(params), data[0], 1.0)
+        gates = {"compressed": _param_gate(dp2, p2)}
+        del dp2, p2
+        t0 = time.perf_counter()
+        dp1, ds1, _ = dry(dp, ds, on_mesh(data[0]))
+        sync()
+        seconds["sharded_step"] = time.perf_counter() - t0
+        p1, _, _ = dry(params, opt.init(params), data[0])
+        gates["dryrun"] = _param_gate(dp1, p1)
+        del p1, dp, ds
+        t0 = time.perf_counter()
+        store = CheckpointStore(tmp / cfg.name)
+        store.save(1, (dp1, ds1))
+        seconds["save"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (rp, rs), _, _ = store.restore((params, opt.init(params)),
+                                       shardings=(specs, zspecs), mesh=mesh)
+        sync()
+        seconds["restore"] = time.perf_counter() - t0
+        store.delete(1)
+        live, back = tree_leaves((dp1, ds1)), tree_leaves((rp, rs))
+        restored_same = len(live) == len(back) and all(
+            tuple(a.placements) == tuple(b.placements)
+            and torch.equal(a.to_local(), b.to_local())
+            for a, b in zip(live, back))
+        del live, back
+        after_restore, _, _ = dry(rp, rs, on_mesh(data[1]))
+        del rp, rs
+        after_live, _, _ = dry(dp1, ds1, on_mesh(data[1]))
+        gates["restored"] = _param_gate(after_restore, after_live)
+        del after_restore, after_live, dp1, ds1
+    want = {k: f for k, (f, _) in lm_kernels_of(cfg).items()}
+    want_launch = {k: (2 * f if k == "ssd_intra" and cfg.remat else f)
+                   if on_card else 0 for k, f in want.items()}
+    got_launch = {k: counts[k] for k in want}
+    got_bwd = {k: sum(bwd[k].values()) for k in want}
+    out = {"model": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "dtype": cfg.dtype, "remat": cfg.remat,
+           "loss": full, "loss_plain": float(loss), "loss_rel": loss_rel,
+           "grad_gate_share": worst[0], "grad_worst_leaf": worst[1],
+           "grads_bit_identical": grads_same,
+           "param_gate_share": {k: v[0] for k, v in gates.items()},
+           "params_bit_identical": {k: v[1] for k, v in gates.items()},
+           "restored_shards_bit_identical": restored_same,
+           "launches": got_launch, "backward_calls": got_bwd,
+           "b3_routes": routes, "b2_routes": b2,
+           "backward_by_route": bwd, "seconds": seconds}
+    emit({"phase": "multidevice", "step": "train_case", **out})
+    if loss_rel > GRAD_REL or worst[0] > 1.0 or \
+            max(out["param_gate_share"].values()) > 1.0:
+        raise RuntimeError(f"sharded train {cfg.name}: loss rel "
+                           f"{loss_rel:.3g}, gradients {worst}, "
+                           f"parameters {out['param_gate_share']} of their "
+                           "gates")
+    if not restored_same:
+        raise RuntimeError(f"sharded train {cfg.name}: the restored "
+                           "shards differ from the live state's")
+    if got_launch != want_launch or got_bwd != want or \
+            (on_card and "flash_attention" in want and routes["sm90"]):
+        raise RuntimeError(f"sharded train {cfg.name}: launches {got_launch}"
+                           f" (expected {want_launch}), backward calls "
+                           f"{got_bwd} (expected {want}), B3 by route "
+                           f"{routes}")
+    return out
+
+
+def multidevice_examples(device, tmp: Path,
+                         image: int = MULTI_EXAMPLE_IMAGE,
+                         requests: int = MULTI_EXAMPLE_REQUESTS) -> dict:
+    """The three examples of ``repro_torch.examples`` in this process on
+    ``device`` at ``image`` (their stdout captured): ``quickstart`` (its
+    five rungs agree, or it raises) and ``serve_planned_cnn`` (the last
+    response bit-identical to ``padded_predict`` on the loaded artifact
+    at one of its buckets) each launching B1 on the card, every launch
+    sm90; ``train_lm_fault_tolerant`` with B3 launching on the card, its
+    lines (the failure at step 15, the restore of step 12) those of a run
+    on the CPU, and its losses within TRAJ_REL["loss"] of that run's."""
+    from repro_torch.engine import InferenceSession, padded_predict
+    from repro_torch.examples import (quickstart, serve_planned_cnn,
+                                      train_lm_fault_tolerant)
+    from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
+
+    on_card = torch.device(device).type == "cuda"
+    dev = torch.device(device).type
+    out = {}
+
+    def run(name, fn, argv):
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = fn(argv)
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": read_counts(),
+                     "b1_routes": dict(conv2d_nchwc.launches_by_route),
+                     "b3_routes": b3_routes(),
+                     "lines": len(buf.getvalue().splitlines())}
+        return got
+
+    outs = run("quickstart", quickstart.main,
+               ["resnet-18", str(image), "--device", dev])
+    if not all(torch.isfinite(o).all() for o in outs.values()):
+        raise RuntimeError("quickstart: non-finite outputs")
+    served = run("serve_planned_cnn", serve_planned_cnn.main,
+                 ["resnet-18", str(requests), "--image", str(image),
+                  "--device", dev, "--artifact", str(tmp / "served")])
+    sess = InferenceSession.load(tmp / "served", device=device)
+    rng = np.random.default_rng(0)
+    xs = [rng.normal(size=(1, 3, image, image)).astype(np.float32)
+          for _ in range(requests)]
+    want = [_outputs(padded_predict(sess, torch.from_numpy(xs[-1]),
+                                    bucket=b)) for b in sess.batch_sizes]
+    out["serve_planned_cnn"]["bit_identical_to_padded_predict"] = any(
+        _same(_outputs(served), w) for w in want)
+    if not out["serve_planned_cnn"]["bit_identical_to_padded_predict"]:
+        raise RuntimeError("serve_planned_cnn: the last response differs "
+                           "from padded_predict at every bucket")
+    for name in ("quickstart", "serve_planned_cnn"):
+        n = out[name]["launches"]["conv2d_nchwc"]
+        if on_card and (n == 0 or out[name]["b1_routes"] != {"sm90": n}):
+            raise RuntimeError(f"{name}: B1 launches {n} by route "
+                               f"{out[name]['b1_routes']}, expected sm90")
+    ft = run("train_lm_fault_tolerant", train_lm_fault_tolerant.main,
+             ["--device", dev, "--ckpt-dir", str(tmp / "ft")])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ft_cpu = train_lm_fault_tolerant.main(
+            ["--device", "cpu", "--ckpt-dir", str(tmp / "ft-cpu")])
+    out["train_lm_fault_tolerant"]["cpu_run_seconds"] = \
+        time.perf_counter() - t0
+    unlossed = [[re.sub(r"loss \S+", "loss _", line) for line in r["lines"]]
+                for r in (ft, ft_cpu)]
+    got, ref = np.asarray(ft["losses"]), np.asarray(ft_cpu["losses"])
+    rel = float(np.abs(got / ref - 1).max())
+    out["train_lm_fault_tolerant"].update(
+        losses_first_last=[ft["losses"][0], ft["losses"][-1]],
+        max_loss_rel_vs_cpu=rel, tol_rel=TRAJ_REL["loss"],
+        restored=[line.strip() for line in ft["lines"]
+                  if "restored" in line])
+    if unlossed[0] != unlossed[1] or not np.isfinite(got).all() or \
+            rel > TRAJ_REL["loss"]:
+        raise RuntimeError(f"train_lm_fault_tolerant: lines or losses "
+                           f"differ from the CPU run's (loss rel {rel:.3g})")
+    if on_card and out["train_lm_fault_tolerant"]["launches"][
+            "flash_attention"] == 0:
+        raise RuntimeError("train_lm_fault_tolerant: B3 never launched")
+    return out
+
+
+def multidevice_train(device, smi: str, small: bool = False) -> dict:
+    """The train half: a process group of one (``nccl`` on the card,
+    ``gloo`` on the CPU) and a 1 x 1 ("data", "model") mesh;
+    ``sharded_train_case`` for each of ``multi_train_configs``, then the
+    three examples (``multidevice_examples``); one line with the half's
+    seconds.  The group is destroyed at the end."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    on_card = torch.device(device).type == "cuda"
+    batch, seq = MULTI_TRAIN_SMALL if small else (TRAIN_PARITY["batch"],
+                                                  TRAIN_PARITY["seq"])
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix=".multitrain-", dir=ROOT))
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda" if on_card else "cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cases = []
+        for cfg in multi_train_configs(small):
+            cases.append(sharded_train_case(device, mesh, cfg, batch, seq,
+                                            tmp))
+            if on_card:
+                _release()
+        t1 = time.perf_counter()
+        examples = multidevice_examples(device, tmp)
+        examples["seconds"] = time.perf_counter() - t1
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"phase": "multidevice", "step": "train", "card": smi,
+           "mesh": "1x1", "backend": "nccl" if on_card else "gloo",
+           "seconds": time.perf_counter() - t0, "cases": cases,
+           "examples": examples}
+    emit(out)
+    return out
+
+
 def phase_multidevice(device, smi: str, main_run: dict, lm_run: dict,
+                      memory: list = None, small_train: bool = False,
                       **cnn_kw) -> dict:
     """A10b on ``device``: ``multidevice_cnn`` over ``main_run``'s
-    session, then ``multidevice_lm`` over ``lm_run``'s; one line with the
-    phase's seconds."""
+    session, then ``multidevice_lm`` over ``lm_run``'s, one line with
+    their seconds; then the train half (``multidevice_train``, its own
+    line).  On the card each half appends its ``memory_line`` to
+    ``memory``."""
     t0 = time.perf_counter()
     cnn = multidevice_cnn(device, main_run, **cnn_kw)
     lm = multidevice_lm(device, lm_run)
     out = {"phase": "multidevice", "card": smi,
            "seconds": time.perf_counter() - t0, **cnn, **lm}
     emit(out)
+    if memory is not None:
+        memory.append(memory_line("multidevice", device))
+    out["train"] = multidevice_train(device, smi, small=small_train)
+    if memory is not None:
+        memory.append(memory_line("multidevice train", device))
     return out
 
 
@@ -5584,8 +5920,7 @@ def multidevice_only(device, smi: str) -> int:
                                    device=device)}
     lm_run = {"session": compile("qwen2-1.5b", (1, 2048), seed=0,
                                  device=device)}
-    phase_multidevice(device, smi, main_run, lm_run)
-    memory_line("multidevice", device)
+    phase_multidevice(device, smi, main_run, lm_run, memory=[])
     return 0
 
 
@@ -5847,8 +6182,7 @@ def main() -> int:
         shutil.rmtree(kept, ignore_errors=True)
     memory.append(memory_line("launch", device))
     multidevice = phase_multidevice(device, smi, main_run,
-                                    lm_runs["qwen2-1.5b"])
-    memory.append(memory_line("multidevice", device))
+                                    lm_runs["qwen2-1.5b"], memory=memory)
     # release every earlier session before arctic-480b's 55 GB of weights
     for run in [main_run, tuning, *lm_runs.values()]:
         run.pop("session")
@@ -5904,6 +6238,10 @@ def main() -> int:
                     for t in ("uniform", "bursty")},
                 "multidevice_launches_per_predict":
                 multidevice["b1_launches_per_predict"],
+                "multidevice_example_launches": {
+                    name: multidevice["train"]["examples"][name]["launches"]
+                    ["conv2d_nchwc"]
+                    for name in ("quickstart", "serve_planned_cnn")},
                 "tuning_launches_per_predict": {
                     f"{t['model']} {t.get('mode', t['phase'])}":
                     t["b1_per_predict"] for t in tuning["lines"]
@@ -5992,7 +6330,18 @@ def main() -> int:
                 r["arch"]: r["backward_by_route"][fn][route] if route
                 else r["backward_calls"][fn]
                 for r in train["main"]["one_step"]
-                if fn in r["backward_calls"]}}
+                if fn in r["backward_calls"]},
+            # the sharded step on the 1 x 1 mesh (phase multidevice): the
+            # launches and backward calls of one loss_and_grads (a B2 row:
+            # those whose forward took its route)
+            "multidevice_sharded_step": {
+                c["model"]: {
+                    "launches": c["b2_routes"][route] if route
+                    else c["launches"][fn],
+                    "backward_calls": c["backward_by_route"][fn].get(route, 0)
+                    if route else c["backward_calls"][fn]}
+                for c in multidevice["train"]["cases"]
+                if fn in c["launches"]}}
     lm_main = [{k: v for k, v in r.items()
                 if k not in ("session", "big_session")}
                for r in lm_runs.values()]

@@ -18,9 +18,13 @@ Properties:
   ``descr '<V2'``, the raw 2-byte values — with ``"dtype": "bfloat16"`` in
   the manifest, and restored from those bytes through ``int16`` as a
   ``torch.bfloat16`` tensor: bit for bit, never through float32.
-* Leaves restore as CPU tensors; ``restore(..., device=)`` moves them.
-  Restoring onto a mesh (the reference's ``shardings``) waits for the
-  multi-chip slice (ROADMAP A10b).
+* **Sharded trees**: a DTensor leaf is saved as its full tensor
+  (``full_tensor()``, a collective: every rank of its mesh calls
+  ``save``), written by the process of rank 0 alone.
+* Leaves restore as CPU tensors; ``restore(..., device=)`` moves them,
+  and ``restore(..., shardings=)`` re-lays them onto a mesh as DTensors
+  (the elastic restart after a topology change): every rank reads the
+  whole leaf and keeps its own shard.
 """
 from __future__ import annotations
 
@@ -138,7 +142,9 @@ def unflatten_dicts(leaves: Dict[str, Any]) -> Dict[str, Any]:
 
 def _to_host(leaf, copy: bool) -> Tuple[np.ndarray, str]:
     """A leaf as C-ordered host values and its manifest dtype name; a
-    bf16 tensor as its raw 2-byte values."""
+    bf16 tensor as its raw 2-byte values, a DTensor as its full tensor."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=copy).contiguous()
         if t.dtype == torch.bfloat16:
@@ -150,6 +156,23 @@ def _to_host(leaf, copy: bool) -> Tuple[np.ndarray, str]:
     # step) keeps its shape (), as the reference writes it
     arr = np.ascontiguousarray(arr) if arr.ndim else np.asarray(arr)
     return arr, str(arr.dtype)
+
+
+def _is_dtensor(leaf) -> bool:
+    if not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
+def _writes(tree_leaves) -> bool:
+    """Whether this process writes a tree: always, unless the tree holds
+    a DTensor and this process is not rank 0 of the process group."""
+    import torch.distributed as dist
+
+    if not any(_is_dtensor(leaf) for leaf in tree_leaves):
+        return True
+    return dist.get_rank() == 0
 
 
 def _write_leaf(path: Path, arr: np.ndarray, dtype: str) -> None:
@@ -173,6 +196,48 @@ def _read_leaf(path: Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
 
 
+def _specs_like(template, specs, prefix=""):
+    """(path, spec) pairs of ``specs`` at the leaves of ``template``:
+    the template's structure decides what is a node, so a spec (a plain
+    tuple) is never taken for one."""
+    if isinstance(template, dict):
+        for k in sorted(template):
+            if not isinstance(specs, dict) or k not in specs:
+                raise ValueError(f"restore: shardings has no entry "
+                                 f"{k!r} under {prefix or 'its root'}")
+            yield from _specs_like(template[k], specs[k],
+                                   f"{prefix}.{k}" if prefix else k)
+    elif isinstance(template, (list, tuple)):
+        if not isinstance(specs, (list, tuple)) or \
+                len(specs) != len(template):
+            raise ValueError(f"restore: shardings at {prefix or 'its root'}"
+                             f" does not match the template's "
+                             f"{len(template)} entries")
+        for i, (t, s) in enumerate(zip(template, specs)):
+            yield from _specs_like(t, s, f"{prefix}[{i}]")
+    else:
+        yield prefix, specs
+
+
+def _place(template, leaves: Dict[str, torch.Tensor], shardings, mesh):
+    """Each leaf of ``template`` as a DTensor on ``mesh`` under the spec at
+    its path of ``shardings`` (each rank keeps its shard of the full leaf
+    it read)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.lm import sharding
+
+    mesh = mesh if mesh is not None else sharding.current_mesh()
+    if mesh is None:
+        raise ValueError("restore(shardings=) places the leaves on a mesh: "
+                         "pass mesh= or call it under "
+                         "sharding.use_mesh(mesh)")
+    return {p: distribute_tensor(leaves[p], mesh,
+                                 sharding.placements(mesh, spec),
+                                 src_data_rank=None)
+            for p, spec in _specs_like(template, shardings)}
+
+
 class CheckpointStore:
     def __init__(self, directory: str | Path):
         self.dir = Path(directory)
@@ -185,8 +250,11 @@ class CheckpointStore:
         # device->host copy happens on the caller's thread (cheap, ordered);
         # serialization happens on the writer thread if async, from a copy
         # the caller may overwrite meanwhile
+        flat = list(_flatten(tree))
         host_leaves = [(p, *_to_host(l, copy=not blocking))
-                       for p, l in _flatten(tree)]
+                       for p, l in flat]
+        if not _writes([leaf for _, leaf in flat]):
+            return
 
         def write():
             tmp = self.dir / f".tmp_{step:06d}"
@@ -257,16 +325,23 @@ class CheckpointStore:
         return leaves, step, manifest["meta"]
 
     def restore(self, template: Any, step: Optional[int] = None,
-                shardings: Any = None, device=None) -> Tuple[Any, int, Dict]:
+                shardings: Any = None, device=None, mesh=None
+                ) -> Tuple[Any, int, Dict]:
         """Load into the structure of ``template``, on ``device`` (default:
-        the CPU).  ``shardings`` — re-laying leaves onto a mesh — waits
-        for the multi-chip slice (ROADMAP A10b)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings waits for the multi-chip slice "
-                "(ROADMAP A10b); pass device= instead")
+        the CPU).  ``shardings`` (the same structure, a spec at each leaf:
+        the trees ``sharding.param_shardings`` and ``zero_shardings``
+        return) re-lays every leaf onto ``mesh`` (default: the mesh of
+        ``sharding.use_mesh``) as a DTensor under ``sharding.placements``
+        of its spec: each rank reads the whole leaf and keeps its own
+        shard, with no communication — the elastic restart path after a
+        topology change."""
+        if shardings is not None and device is not None:
+            raise ValueError("restore: pass shardings= (the leaves go to "
+                             "the mesh's device) or device=, not both")
         leaves, step, meta = self.restore_flat(step)
-        if device is not None:
+        if shardings is not None:
+            leaves = _place(template, leaves, shardings, mesh)
+        elif device is not None:
             leaves = {p: t.to(device) for p, t in leaves.items()}
         return _unflatten_like(template, leaves), step, meta
 

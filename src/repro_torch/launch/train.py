@@ -49,9 +49,20 @@ def loss_and_grads(params, cfg, batch):
     with torch.enable_grad():
         loss, _ = model.loss_fn(live, cfg, batch)
         loss.backward()
-    return loss.detach(), tree_map(
-        lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
-        live)
+    return loss.detach(), tree_map(_grad_of, live)
+
+
+def _grad_of(p):
+    """``p``'s gradient, placed as ``p`` is where ``p`` is a DTensor (a
+    gradient that the backward left ``Partial`` is summed here)."""
+    from torch.distributed.tensor import DTensor
+
+    g = p.grad
+    if g is None:
+        return torch.zeros_like(p)
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg, opt, compress: bool):

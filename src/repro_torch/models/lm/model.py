@@ -55,9 +55,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models.lm import layers as L
 from repro_torch.models.lm import rglru, ssm
 from repro_torch.models.lm.config import LMConfig
-from repro_torch.models.lm.sharding import (BATCH, MODEL,
+from repro_torch.models.lm.sharding import (BATCH, MODEL, current_mesh,
+                                            current_strategy,
                                             distribute_like_inputs,
-                                            shard_heads, shard_hint)
+                                            shard_heads, shard_hint,
+                                            use_mesh)
 
 # the families whose layers are stacked on a leading axis
 STACKED = ("dense", "moe", "ssm", "vlm")
@@ -315,7 +317,34 @@ def _remat(fn, cfg: LMConfig, grad: bool):
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+    return functools.partial(checkpoint, _in_this_mesh(fn),
+                             use_reentrant=False, **kw)
+
+
+def _in_this_mesh(fn):
+    """``fn`` run under the caller's mesh context (``use_mesh``, and
+    DTensor's implicit replication if it is on), wherever it runs: the
+    recompute runs in the backward, which autograd runs on a thread of
+    its own for a card, and there the caller's thread-local context is
+    not set (the layer's DTensors would reach the kernels' wrappers
+    whole)."""
+    mesh, strategy = current_mesh(), current_strategy()
+    if mesh is None:
+        return fn
+    from torch.distributed.tensor import DTensor
+
+    dispatch = DTensor._op_dispatcher
+    implicit = dispatch._allow_implicit_replication
+
+    def run(*args, **kw):
+        prev = dispatch._allow_implicit_replication
+        dispatch._allow_implicit_replication = implicit
+        try:
+            with use_mesh(mesh, strategy=strategy):
+                return fn(*args, **kw)
+        finally:
+            dispatch._allow_implicit_replication = prev
+    return run
 
 
 # ===========================================================================

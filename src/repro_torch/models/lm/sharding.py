@@ -17,7 +17,8 @@ A spec is what the reference's ``PartitionSpec`` holds, as a tuple with
 one entry per tensor dim: ``None``, a mesh axis name, or a tuple of names
 (major to minor).  :func:`placements` turns one into DTensor placements
 over a ``torch.distributed.device_mesh.DeviceMesh``: ``Shard(d)`` on each
-mesh dim that entry ``d`` names, ``Replicate()`` on the rest.  DTensor
+mesh dim of more than one rank that entry ``d`` names, ``Replicate()`` on
+the rest.  DTensor
 splits a dim sharded over several mesh dims in mesh-dim order, the
 outermost first, which is JAX's major-to-minor order where the entry
 lists its axes in the mesh's order (every rule here does); an entry that
@@ -131,10 +132,13 @@ def guarded_spec(mesh, shape: Sequence[int], spec: Sequence) -> Spec:
 def placements(mesh, spec: Sequence) -> Tuple:
     """DTensor placements over the DeviceMesh ``mesh`` for ``spec``:
     ``Shard(d)`` on every mesh dim that entry ``d`` names, ``Replicate()``
-    on the others."""
+    on the others and on a mesh dim of size 1 (one shard is the whole
+    dim; DTensor would refuse a view that drops a dim of size 1 sharded
+    so, as the batch of 1 is on a 1 x 1 mesh)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = list(mesh.mesh_dim_names)
+    sizes = list(mesh.mesh.shape)
     out = [Replicate()] * len(names)
     for d, axes in enumerate(spec):
         if axes is None:
@@ -147,7 +151,8 @@ def placements(mesh, spec: Sequence) -> Tuple:
                 f"order {tuple(names)}: DTensor splits a dim over several "
                 "mesh dims outermost first")
         for m in dims:
-            out[m] = Shard(d)
+            if sizes[m] > 1:
+                out[m] = Shard(d)
     return tuple(out)
 
 
@@ -219,18 +224,33 @@ def local_kernel(fn, args: Sequence[torch.Tensor], specs: Sequence[Spec],
     indices: one a tensor of the tuple ``fn`` returns).  The kernels'
     wrappers take plain tensors, so every call of B2, B3 and B4 on a
     DTensor goes through here, as do the einsums around them that
-    DTensor's sharding propagation would take minutes to place."""
+    DTensor's sharding propagation would take minutes to place.
+
+    Gradients: an arg replicated on a mesh dim that another arg is
+    sharded on (a parameter beside activations sharded on the batch: the
+    MoE router beside the tokens, mamba2's ``a_log`` beside the SSD's
+    rows) takes part in every shard's computation, so each rank holds
+    only its rows' share of that arg's gradient.  Its gradient is marked
+    ``Partial()`` (a sum) on those mesh dims, and DTensor sums it over
+    them where it is read.  Every other arg's gradient is placed as the
+    arg is."""
     mesh = current_mesh()
     if mesh is None or not any(_is_dtensor(a) for a in args):
         return fn(*args)
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     ins = tuple(placements(mesh, guarded_spec(mesh, a.shape, s))
                 for a, s in zip(args, specs))
     outs = tuple(ins[i] for i in out_like) if isinstance(out_like, tuple) \
         else (ins[out_like],)
+    sharded = [any(p[m].is_shard() for p in ins)
+               for m in range(len(mesh.mesh_dim_names))]
+    grads = tuple(tuple(Partial() if sharded[m] and q.is_replicate() else q
+                        for m, q in enumerate(p)) for p in ins)
     return local_map(fn, out_placements=outs, in_placements=ins,
-                     device_mesh=mesh, redistribute_inputs=True)(*args)
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def batch_spec(mesh, batch: int):

@@ -84,15 +84,91 @@ def test_async_save_holds_a_copy(tmp_path):
 
 
 def test_restore_onto_a_device_and_refuses_shardings(tmp_path):
+    """``restore(device=)`` moves the leaves; ``shardings=`` with no mesh
+    (neither ``mesh=`` nor ``sharding.use_mesh``) raises naming both, as
+    does asking for a device beside shardings."""
     _, tree = _trees("float32")
     store = CheckpointStore(tmp_path)
     store.save(0, tree)
     back, _, _ = store.restore(tree, device="cpu")
     assert back["w"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A10"):
-        store.restore(tree, shardings={"w": None})
+    specs = {"w": (None, None), "layers": {"x": (None,) * 3, "y": (None,)}}
+    with pytest.raises(ValueError, match=r"mesh=.*use_mesh"):
+        store.restore(tree, shardings=specs)
+    with pytest.raises(ValueError, match="not both"):
+        store.restore(tree, shardings=specs, device="cpu")
     with pytest.raises(FileNotFoundError):
         CheckpointStore(tmp_path / "empty").restore_flat()
+
+
+@pytest.fixture
+def one_process_group():
+    """A ``gloo`` process group of one, destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_restore_onto_shardings_of_a_one_process_mesh(tmp_path,
+                                                      one_process_group):
+    """``restore(shardings=)`` on a 1 x 1 x 1 ("pod", "data", "model")
+    ``gloo`` mesh, from a store of each package: bf16 leaves bit for bit,
+    the 0-d step of an ``AdamWState`` rebuilt as the namedtuple, a spec
+    entry naming two mesh axes; the mesh from ``use_mesh`` or ``mesh=``;
+    a DTensor tree saved back gives the same files."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro.optim.adamw import AdamWState as RState
+    from repro_torch.models.lm import sharding
+    from repro_torch.optim.adamw import AdamWState
+
+    ref_w, w = _array("bfloat16", (4, 6), 1)
+    ref_m, m = _array("float32", (4, 6), 2)
+    tree = {"params": {"w": w},
+            "opt": AdamWState(torch.tensor(3, dtype=torch.int32),
+                              {"w": m}, {"w": m * m})}
+    ref_tree = {"params": {"w": ref_w},
+                "opt": RState(np.asarray(3, dtype=np.int32), {"w": ref_m},
+                              {"w": ref_m * ref_m})}
+    specs = {"params": {"w": (("pod", "data"), "model")},
+             "opt": AdamWState((), {"w": (None, "model")},
+                               {"w": ("data", None)})}
+    CheckpointStore(tmp_path / "port").save(5, tree)
+    RStore(tmp_path / "ref").save(5, ref_tree)
+    mesh = init_device_mesh("cpu", (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    for src in ("port", "ref"):
+        with sharding.use_mesh(mesh):
+            back, step, _ = CheckpointStore(tmp_path / src).restore(
+                tree, shardings=specs)
+        again, _, _ = CheckpointStore(tmp_path / src).restore(
+            tree, shardings=specs, mesh=mesh)
+        assert step == 5 and isinstance(back["opt"], AdamWState)
+        for got in (back, again):
+            pw, st = got["params"]["w"], got["opt"].step
+            assert isinstance(pw, DTensor) and pw.dtype == torch.bfloat16
+            # a mesh dim of size 1 holds the whole dim: replicated
+            assert tuple(pw.placements) == (Replicate(),) * 3
+            assert torch.equal(pw.to_local().view(torch.int16),
+                               w.view(torch.int16))
+            assert st.shape == () and st.dtype == torch.int32
+            assert tuple(st.placements) == (Replicate(),) * 3
+            assert int(st.to_local()) == 3
+            assert torch.equal(got["opt"].nu["w"].to_local(), m * m)
+    CheckpointStore(tmp_path / "again").save(5, back)
+    assert dir_checksums(tmp_path / "again") == \
+        dir_checksums(tmp_path / "port")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -293,3 +369,28 @@ def test_compile_reads_a_database_file_as_a_snapshot(tmp_path):
     assert sess.db.path is None and len(sess.db) > 1
     assert path.read_bytes() == before
     assert tls._wl_key(ConvWorkload(**WL)) in sess.db._mem
+
+
+def test_restore_places_a_two_axis_spec_as_jax_does(tmp_path):
+    """On a 2 x 2 x 2 ("pod", "data", "model") mesh over a ``"fake"``
+    group of 8 (this process rank 0), ``restore(shardings=)`` gives rank 0
+    the rows of a leaf whose dim 0 is over ("pod", "data") and dim 1 over
+    "model": the first quarter of its rows, the first half of its
+    columns, as JAX's device (0, 0, 0) holds them."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import fake_process_group
+
+    w = torch.arange(48, dtype=torch.float32).reshape(8, 6)
+    CheckpointStore(tmp_path).save(0, {"w": w, "s": torch.tensor(1.0)})
+    with fake_process_group(8):
+        mesh = init_device_mesh("cpu", (2, 2, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+        back, _, _ = CheckpointStore(tmp_path).restore(
+            {"w": w, "s": w}, mesh=mesh,
+            shardings={"w": (("pod", "data"), "model"), "s": ()})
+        assert tuple(back["w"].placements) == (Shard(0), Shard(0), Shard(1))
+        assert torch.equal(back["w"].to_local(), w[:2, :3])
+        assert tuple(back["s"].placements) == (Replicate(),) * 3
+        assert float(back["s"].to_local()) == 1.0

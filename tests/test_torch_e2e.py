@@ -148,13 +148,29 @@ def test_chip_smoke_main_phase_on_the_lowerings_runs_on_cpu(dtype):
                                     for k in out["lowering_calls"])
 
 
-def test_chip_smoke_multidevice_phase_runs_on_cpu():
+@pytest.fixture
+def one_torch_thread(monkeypatch):
+    """One torch intra-op thread here and in the children: the
+    rehearsal's tensors are tiny, and a pool of 8 threads a worker
+    oversubscribes the host under the suite's parallel workers (the
+    multidevice rehearsal took 292 s so, ~25 s alone)."""
+    n = torch.get_num_threads()
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_chip_smoke_multidevice_phase_runs_on_cpu(one_torch_thread):
     """chip_smoke's ``phase_multidevice`` at a tiny size, on the CPU:
     ResNet-18 at 32 compiled with ``devices=1`` bit-identical to a plain
     session, a ``devices=2`` artifact re-targeted to 1, the refusals of a
     card that is not there (compile and the command line), and reduced
     qwen2's prefill and decode step as DTensors over a ``gloo`` group of
-    one, equal to the session's own."""
+    one, equal to the session's own; then the train half over the same
+    group: reduced qwen2, mamba2 and arctic trained on DTensors equal to
+    the plain steps, saved and restored onto the mesh shard for shard, and
+    the three examples (``repro_torch.examples``) on the CPU."""
     import importlib.util
     from pathlib import Path
 
@@ -171,12 +187,29 @@ def test_chip_smoke_multidevice_phase_runs_on_cpu():
     smoke.MULTI_PROMPT = 48
     out = smoke.phase_multidevice("cpu", "cpu", main_run, lm_run,
                                   model="resnet-18", image=32, small=32,
-                                  requests=2)
+                                  requests=2, small_train=True)
     assert out["b1_launches_per_predict"] == [0, 0]
     assert out["bit_identical_to_main"] and out["cli_exit"] != 0
     assert out["retarget"]["max_logit_err_vs_cpu_rel"] <= smoke.LOGIT_TOL
     assert "1 CUDA device(s) requested, 0 visible" in out["refused"]
     assert out["backend"] == "gloo" and out["b3_launches_prefill"] == 0
     assert all(v["bit_identical"] for v in out["lm"].values())
+    train = out["train"]
+    assert [c["model"] for c in train["cases"]] == [
+        "qwen2-1.5b-reduced", "mamba2-130m-reduced", "arctic-480b-reduced"]
+    for case in train["cases"]:
+        assert case["grad_gate_share"] <= 1.0
+        assert case["restored_shards_bit_identical"]
+        assert all(v == 0 for v in case["launches"].values())
+        assert all(v == case["n_layers"]
+                   for v in case["backward_calls"].values())
+    assert train["cases"][2]["backward_calls"] == {
+        "flash_attention": 2, "matmul_blocked": 2}
+    ex = train["examples"]
+    assert ex["serve_planned_cnn"]["bit_identical_to_padded_predict"]
+    assert ex["train_lm_fault_tolerant"]["restored"] == [
+        "restored checkpoint @ step 12; data stream re-addressed for 3 "
+        "hosts"]
+    assert ex["train_lm_fault_tolerant"]["max_loss_rel_vs_cpu"] == 0.0
     import torch.distributed as dist
     assert not dist.is_initialized()
