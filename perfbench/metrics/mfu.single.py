@@ -1,0 +1,2 @@
+"""The whole model's FLOPs over the window at the TF32 peak (single cell)."""
+from perfbench.harness.readers import mfu as read  # noqa: F401
