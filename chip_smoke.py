@@ -32,7 +32,11 @@ Phases, each a function of a device and a size:
                 predict must launch B1 once per conv node, every launch on
                 its sm90 route, and every request's outputs (the batch-8
                 one too) must match a CPU session of the same seed and
-                plan;
+                plan; the line carries the program's cold spans of that
+                session's set-up (``setup_split``: seconds in compile,
+                specialize, plan, bind and kernel.load, each plan's
+                passes, each kernel library's load and build) and its
+                cold counters;
    variants   — the reference's other engine path: ResNet-50 and VGG-16 at
                 224, each as two sessions with ``use_kernel=False`` (fp32
                 and ``dtype="int8"``), through phase 3 (4 batch-1 requests
@@ -716,6 +720,7 @@ def phase_main(device, image: int = 224, requests: int = 8,
     ``E2E_TOL`` with the same top-1 in every row, and to ``LOGIT_TOL`` of
     the largest its logits (marked as a second output, ``with_logits``)
     and every other output (SSD's ``loc_cat`` and ``conf_cat``)."""
+    from repro_torch import trace
     from repro_torch.engine import compile
     from repro_torch.engine.session import _plan_to_json
     from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc
@@ -729,6 +734,8 @@ def phase_main(device, image: int = 224, requests: int = 8,
         return [t.cpu().numpy() for t in (y if isinstance(y, tuple)
                                           else (y,))]
 
+    cold = trace.recorder()
+    first, cold_counts = cold.recorded, dict(cold.counters)
     t0 = time.perf_counter()
     session = compile(model, (1, 3, image, image), device=device, **kw)
     compile_s = time.perf_counter() - t0
@@ -775,6 +782,10 @@ def phase_main(device, image: int = 224, requests: int = 8,
             if sm:
                 np.testing.assert_allclose(y.sum(axis=1), 1.0, rtol=1e-5,
                                            atol=1e-5)
+    setup = {**trace.setup_split(cold, first),
+             "counters": {k: v - cold_counts[k]
+                          for k, v in cold.counters.items()
+                          if k != "nodes_walked"}}
 
     ref = compile(model, (1, 3, image, image), device="cpu", **kw)
     for batch in (1, big_batch):
@@ -821,6 +832,7 @@ def phase_main(device, image: int = 224, requests: int = 8,
            "launches": launches, "launches_by_route": by_route,
            "launches_per_predict": per_predict,
            "lowering_calls": lowered, "compile_s": compile_s,
+           "setup_split": setup,
            "max_abs_err_vs_cpu": max(e for e, _ in errs) if any(softmax)
            else None,
            "max_logit_err_vs_cpu_rel": max(r for _, r in errs),
@@ -979,84 +991,54 @@ NODE_GROUPS = {"conv_block": "conv", "conv2d": "conv",
                "max_pool": "bn_relu_pool", "avg_pool": "bn_relu_pool",
                "global_avg_pool": "bn_relu_pool", "dense": "dense"}
 B1_KERNEL = "conv_sm90_kernel"       # the __global__ of conv2d_nchwc_sm90.cu
-NODE_RANGE = "node:"
-
-
-@contextlib.contextmanager
-def node_ranges(labels: dict | None = None):
-    """While the block runs, each graph node the executor evaluates, and
-    each pad of a conv's blocked input, runs inside a profiler range named
-    ``node:<op>`` (``node:pad`` for the pad), or ``node:<label>`` for a
-    node that ``labels`` (node name -> label) names."""
-    from torch.profiler import record_function
-
-    from repro_torch.engine import executor
-    from repro_torch.kernels import ops as kops
-
-    eval_node, pad = executor._eval_node, kops.pad_blocked
-    labels = labels or {}
-
-    def ranged_eval(node, *args):
-        with record_function(NODE_RANGE + labels.get(node.name, node.op)):
-            return eval_node(node, *args)
-
-    def ranged_pad(x, p):
-        with record_function(NODE_RANGE + "pad"):
-            return pad(x, p)
-
-    executor._eval_node, kops.pad_blocked = ranged_eval, ranged_pad
-    try:
-        yield
-    finally:
-        executor._eval_node, kops.pad_blocked = eval_node, pad
 
 
 def device_ms_by_group(fn, iters: int, b1: int,
                        labels: dict | None = None) -> dict:
     """The card's ms per call of ``fn`` by node group, from a
-    ``torch.profiler`` trace under ``node_ranges(labels)`` that must hold
-    ``b1`` B1 launches (``_profiled``); a node that ``labels`` names is
-    its own group, its label.  B1's launches go through ``ctypes``,
-    outside the profiler's op correlation, so its group ``b1`` is summed
-    by kernel name; every other kernel counts for the innermost ``node:``
-    range around the op that launched it (group ``conv``: a conv node's
-    own torch ops, the bias add of a plain conv2d), and what neither
-    claims is ``unattributed``.  Also the wall ms per call (the ranges'
+    ``torch.profiler`` trace with the program's tracer on
+    (``repro_torch.trace``) that must hold ``b1`` B1 launches
+    (``_profiled``).  Each device operation counts for the program span
+    open on its thread when its runtime call began, on the trace's clock
+    (``trace.tie``, ``trace.assign``): a ``pad`` span's for
+    ``transforms_and_pads``; a conv node's B1 kernels for ``b1`` and its
+    other operations for ``conv``; a node that ``labels`` (node name ->
+    label) names for its label; any other node for its op's group; what no
+    node holds for ``unattributed``.  Also the wall ms per call (the spans'
     host cost included), the top kernels by device time, the B1 launches
     the trace holds beside ``b1``, and ``_launch_gaps``."""
-    from torch.autograd import DeviceType
+    from repro_torch import trace
 
     labels = labels or {}
-    prof, wall_ms, held, gaps = _profiled(fn, iters, b1, labels)
-    lead = gaps.pop("lead_ids")
-    own = set(labels.values())
+    prof, wall_ms, held, gaps = _profiled(fn, iters, b1, spans=True)
+    gaps.pop("lead_ids")
+    rec, cals = gaps.pop("program")
+    if rec.dropped:
+        raise RuntimeError(f"the program dropped {rec.dropped} spans")
+    events = trace.read_events(prof)
+    offset, gaps["clock_tie_ns"] = trace.tie(
+        trace.lead_launches(events)[:-1], cals)
+    owned, by_index = trace.assign(events, rec.spans(), offset,
+                                   trace.aliases(rec.threads))
     groups: dict = {"b1": 0.0}
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            if e.name.startswith(NODE_RANGE) or e.id in lead:
-                continue                 # a range's span, or a lead kernel
-            ms = e.time_range.elapsed_us() / 1e3 / iters
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
-            if B1_KERNEL in e.name:
-                groups["b1"] += ms
-            continue
-        ms = sum(k.duration for k in e.kernels
-                 if not k.name.startswith(NODE_RANGE)) / 1e3 / iters
-        if not ms:
-            continue
-        owner = e
-        while owner is not None and not owner.name.startswith(NODE_RANGE):
-            owner = owner.cpu_parent
-        tag = None if owner is None else owner.name[len(NODE_RANGE):]
-        group = ("unattributed" if tag is None else tag if tag in own
-                 else NODE_GROUPS.get(tag, "other"))
+    for e, row in owned:
+        ms = (e.end - e.start) / 1e6 / iters
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        node = by_index.get(row.parent) if row and row.kind == "pad" else row
+        if node is None or node.kind in ("predict", "pad"):
+            group = "unattributed"
+        elif row.kind == "pad":
+            group = NODE_GROUPS["pad"]
+        elif B1_KERNEL in e.name and node.kind in CONV_OPS:
+            group = "b1"
+        else:
+            group = labels.get(node.name, NODE_GROUPS.get(node.kind,
+                                                          "other"))
         groups[group] = groups.get(group, 0.0) + ms
-    busy = sum(by_name.values())
-    groups["unattributed"] = groups.get("unattributed", 0.0) + busy - sum(
-        groups.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"device_ms": busy, "wall_ms": wall_ms, "by_group": groups,
+    return {"device_ms": sum(by_name.values()), "wall_ms": wall_ms,
+            "by_group": groups,
             "top_ms": [[name[:80], ms] for name, ms in top],
             "b1_launches": [held, b1], "launch_gaps": gaps}
 
@@ -1165,7 +1147,8 @@ def phase_variant_times(run: dict, image: int, b1_node_ms: dict, device,
     20 on the host clock around a synchronize); the card's time per
     predict, in all, by node group, and for each lowering (``variant/dtype``)
     the card's time of the conv nodes it runs, from a trace of ``iters``
-    predicts under ``node_ranges`` with each conv node labelled by its
+    predicts grouped by the program's node spans
+    (``device_ms_by_group``) with each conv node labelled by its
     lowering, which must hold no B1 launch; beside each lowering, B1's
     time on the same nodes (``b1_node_ms``, from the default session's
     trace) and cuDNN's fp32 ``F.conv2d`` + bias (TF32 off) on the same
@@ -2977,42 +2960,56 @@ def _launch_gaps(prof, lead: int) -> dict:
             if offs else None, "events": len(events), "read_s": read_s}
 
 
-def _profiled(fn, iters: int, b1: int | None = None,
-              labels: dict | None = None):
+def _profiled(fn, iters: int, b1: int | None = None, spans: bool = False):
     """``iters`` calls of ``fn`` (after one outside the trace) under
-    ``torch.profiler`` (and ``node_ranges(labels)`` unless ``labels`` is
-    None), between the idle spans and after the lead kernels above.  Every
+    ``torch.profiler``, between the idle spans and after the lead kernels
+    above; with ``spans`` the program's tracer is on over the calls, into
+    a fresh ``trace.Recorder``, and the last ``trace.CALS`` leads but one
+    are each read between two readings of the program's clock.  Every
     launch after the lead must have its kernel in the trace, and with
     ``b1`` the trace must hold that many B1 launches; it is taken up to
-    three times, with the leads of ``TRACE_LEADS``, then this raises.  Returns the profiler, the wall ms per call, the B1
-    launches the trace holds and ``_launch_gaps`` with the number of takes
-    (its ``lead_ids`` the sums leave out)."""
+    three times, with the leads of ``TRACE_LEADS``, then this raises.
+    Returns the profiler, the wall ms per call, the B1 launches the trace
+    holds and ``_launch_gaps`` with the number of takes (its ``lead_ids``
+    the sums leave out), and with ``spans`` under ``program`` the recorder
+    and the clock readings."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
 
     fn()
     torch.cuda.synchronize()
     for take, lead in enumerate(TRACE_LEADS, 1):
-        with (contextlib.nullcontext() if labels is None
-              else node_ranges(labels)), \
-                profile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             time.sleep(TRACE_PAD_S)
-            for _ in range(lead):
+            for _ in range(lead - (trace.CALS + 1 if spans else 0)):
+                torch.cuda._sleep(0)
+            if spans:
+                cals = trace.bracketed_leads(trace.CALS)
                 torch.cuda._sleep(0)
             torch.cuda.synchronize()
+            rec = trace.Recorder() if spans else None
+            trace.tracing(rec)
             t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+            try:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            finally:
+                trace.tracing(None)
             wall_ms = (time.perf_counter() - t0) * 1e3 / iters
             time.sleep(TRACE_PAD_S)
         gaps = {**_launch_gaps(prof, lead), "takes": take}
+        if spans:
+            gaps["program"] = (rec, cals)
         held = sum(1 for e in prof.events() if e.device_type ==
                    DeviceType.CUDA and B1_KERNEL in e.name)
         if not gaps["missed"] and (b1 is None or held == b1):
             return prof, wall_ms, held, gaps
     gaps.pop("lead_ids")
+    gaps.pop("program", None)
     raise RuntimeError(f"a trace of {iters} calls held {held} of {b1} B1 "
                        f"launches, {len(TRACE_LEADS)} times: {gaps}")
 

@@ -32,16 +32,25 @@ concatenated in order on the first.  On "cuda" the shards run on
 synchronisation between them (the launches are asynchronous); fewer
 visible cards than D raises (``shard_devices``).  On "cpu" the D shards
 run in turn, the stand-in for the reference's D forced host devices.
+
+While ``repro_torch.trace.tracing`` is on, a call records one ``predict``
+span (its argument the batch) and, under it, one span per graph node walked
+(named by the node, its kind the node's op; one clock reading a node, a
+node ending where the next begins), those of every shard of a sharded call
+included; with tracing off a walk reads the switch once and records
+nothing.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import threading
+from array import array
 from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.epilogue import (EpilogueSpec, PoolSpec,
                                        fold_dequant_scale)
 from repro_torch.core.layout import Layout, NCHW, kernel_to_kcrs_ck
@@ -297,6 +306,7 @@ class CompiledModel:
                              "would materialize every intermediate "
                              "across the devices")
         self._topo = self.plan.planned.graph.topo_order()
+        self._span_ids = (None, None)    # (recorder, (names, kinds))
         self._replicas: Dict[torch.device, "CompiledModel"] = {}
         self._replica_lock = threading.Lock()
         self._shards: List["CompiledModel"] = []
@@ -317,6 +327,18 @@ class CompiledModel:
 
     @torch.inference_mode()
     def __call__(self, inputs: Dict[str, torch.Tensor]):
+        rec = trace.active()
+        if rec is None:
+            return self._call(inputs)
+        # name and kind 0: ``predict``, interned first in every recorder
+        i = rec.open(0, 0, int(next(iter(inputs.values())).shape[0]))
+        try:
+            return self._call(inputs)
+        finally:
+            rec.close(i)
+
+    def _call(self, inputs: Dict[str, torch.Tensor]):
+        """One predict: the walk, or each shard's walk in turn."""
         if self.devices == 1:
             return self._walk(inputs)
         self._check_batch(inputs)
@@ -341,17 +363,36 @@ class CompiledModel:
         """The graph, node by node, on this model's parameters."""
         structure = self.plan.planned
         env: Dict[str, torch.Tensor] = {}
-        for node in self._topo:
-            if node.op == "input":
-                env[node.name] = inputs[node.name]
-                continue
-            env[node.name] = _eval_node(
-                node, structure.layouts[node.name],
-                structure.schedules.get(node.name), self.use_kernel,
-                self.params.get(node.name, {}),
-                *[env[i] for i in node.inputs])
+        rec = trace.active()              # the switch, read once a walk
+        walk = None if rec is None else rec.walk(*self._node_span_ids(rec))
+        try:
+            for node in self._topo:
+                if node.op == "input":
+                    env[node.name] = inputs[node.name]
+                    continue
+                if walk is not None:
+                    walk.step()
+                env[node.name] = _eval_node(
+                    node, structure.layouts[node.name],
+                    structure.schedules.get(node.name), self.use_kernel,
+                    self.params.get(node.name, {}),
+                    *[env[i] for i in node.inputs])
+        finally:
+            if walk is not None:
+                walk.done()
         outs = [env[o] for o in structure.graph.outputs]
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def _node_span_ids(self, rec) -> tuple:
+        """The walked nodes' span names (the nodes') and kinds (their
+        ops), interned in ``rec``, in walk order."""
+        held, ids = self._span_ids
+        if held is not rec:
+            nodes = [n for n in self._topo if n.op != "input"]
+            ids = (array("q", [rec.intern(n.name) for n in nodes]),
+                   array("q", [rec.intern(n.op) for n in nodes]))
+            self._span_ids = (rec, ids)
+        return ids
 
     def predict(self, x: torch.Tensor):
         """Single-input convenience (the common CNN case)."""

@@ -80,6 +80,7 @@ from typing import (TYPE_CHECKING, Any, Callable, Dict, Optional, Sequence,
 
 import torch
 
+from repro_torch import trace
 from repro_torch.checkpoint.store import (CheckpointStore, dir_checksums,
                                           sha256_file)
 from repro_torch.core.cost import MachineModel, machine_for
@@ -474,7 +475,10 @@ class InferenceSession:
         use.  With ``devices=D`` the plan is built at the per-device
         sub-batch ``batch // D``, so ``batch`` must divide by D.
         Double-checked under the session lock, so concurrent callers of an
-        unseen batch size plan+compile it exactly once."""
+        unseen batch size plan+compile it exactly once.  Each one is a cold
+        ``specialize`` span (``repro_torch.trace``) holding ``plan`` (noted
+        with the passes of its ``PassReport``s) and ``bind``, and counts in
+        ``plans_built``."""
         m = self._specialized.get(batch)     # lock-free fast path
         if m is not None:
             return m
@@ -489,21 +493,29 @@ class InferenceSession:
                     f"specialization (saved: {self.batch_sizes}) and no "
                     "source graph to re-plan; save the artifact with this "
                     "batch size or with include_source=True")
-            plan = self.pipeline.run(
-                self._graph, self._shapes_for(batch // self.devices),
-                db=self.db,
-                tuning=self.tuning, quantize=(self.dtype == "int8"),
-                transform_bw=self.transform_bw, machine=self.machine,
-                search_budget=self.search_budget, device=self.device,
-                use_kernel=self.use_kernel)
-            if (plan.report is not None
-                    and plan.report.transform_bw is not None):
-                # calibrated once (measured tuning); reused by later
-                # specializations and kept in the saved artifact
-                self.transform_bw = plan.report.transform_bw
-            m = compile_model(plan, self._params, dispatch=self.dispatch,
-                              use_kernel=self.use_kernel,
-                              devices=self.devices)
+            with trace.span("specialize", str(batch), batch):
+                with trace.span("plan") as planning:
+                    plan = self.pipeline.run(
+                        self._graph, self._shapes_for(batch // self.devices),
+                        db=self.db,
+                        tuning=self.tuning, quantize=(self.dtype == "int8"),
+                        transform_bw=self.transform_bw, machine=self.machine,
+                        search_budget=self.search_budget, device=self.device,
+                        use_kernel=self.use_kernel)
+                    if plan.report is not None:
+                        trace.note(planning, passes=[
+                            (r.name, r.seconds) for r in plan.report.passes])
+                if (plan.report is not None
+                        and plan.report.transform_bw is not None):
+                    # calibrated once (measured tuning); reused by later
+                    # specializations and kept in the saved artifact
+                    self.transform_bw = plan.report.transform_bw
+                with trace.span("bind"):
+                    m = compile_model(plan, self._params,
+                                      dispatch=self.dispatch,
+                                      use_kernel=self.use_kernel,
+                                      devices=self.devices)
+            trace.count("plans_built")
             self._specialized[batch] = m
             return m
 
@@ -799,6 +811,7 @@ Session = InferenceSession
 # compile(): the public front door
 # ---------------------------------------------------------------------------
 
+@trace.spanned("compile")
 def compile(model: Union[str, Graph, "LMConfig"],        # noqa: A001
             input_spec: Union[Dict[str, Tuple[int, ...]],
                               Tuple[int, ...], None] = None, *,

@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Sequence
 
+from repro_torch import trace
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -109,20 +111,38 @@ def build(name: str) -> dict:
 def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C function ``symbol`` of kernel ``name``, built and loaded on
     first use, with its ``argtypes`` declared and an ``int`` (the
-    ``cudaError_t`` of the launch) as its result."""
+    ``cudaError_t`` of the launch) as its result.  Loading a library is
+    one cold ``kernel.load`` span (``repro_torch.trace``), noted with
+    ``built`` and the build's ``seconds``, and counts in ``kernels_loaded``
+    (and ``kernels_built`` where ``nvcc`` ran)."""
     key = (name, symbol)
     fn = _loaded.get(key)
     if fn is None:
         with _lock:
             fn = _loaded.get(key)
             if fn is None:
-                lib = ctypes.CDLL(str(build(name)["path"]))
+                lib = _loaded.get(name)
+                if lib is None:
+                    lib = _load(name)
                 fn = getattr(lib, symbol)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
                 _loaded[name] = lib       # keep the library loaded
                 _loaded[key] = fn
     return fn
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """Build (where needed) and load kernel ``name``'s library."""
+    with trace.span("kernel.load", name) as i:
+        built = build(name)
+        lib = ctypes.CDLL(str(built["path"]))
+        trace.note(i, built=built["seconds"] > 0,
+                       seconds=built["seconds"])
+    trace.count("kernels_loaded")
+    if built["seconds"] > 0:
+        trace.count("kernels_built")
+    return lib
 
 
 def count_launch(fn, route=None) -> None:

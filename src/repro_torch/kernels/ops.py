@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.core.epilogue import IDENTITY, EpilogueSpec
 from repro_torch.core.layout import from_nchwc, kernel_to_kcrs_ck, to_nchwc
 from repro_torch.core.schedule import INT8_VARIANTS, VARIANTS, ConvSchedule
@@ -52,10 +53,20 @@ def _pad_hw(pad) -> tuple:
 
 
 def pad_blocked(x_blocked: torch.Tensor, pad) -> torch.Tensor:
+    """The blocked input zero-padded in H and W; while tracing is on, a
+    pad that runs is one ``pad`` span (under its conv node's)."""
     ph, pw = _pad_hw(pad)
     if ph == 0 and pw == 0:
         return x_blocked
-    return F.pad(x_blocked, (0, 0, pw, pw, ph, ph))
+    rec = trace.active()
+    if rec is None:
+        return F.pad(x_blocked, (0, 0, pw, pw, ph, ph))
+    pad_id = rec.intern("pad")
+    i = rec.open(pad_id, pad_id)
+    try:
+        return F.pad(x_blocked, (0, 0, pw, pw, ph, ph))
+    finally:
+        rec.close(i)
 
 
 # ---------------------------------------------------------------------------

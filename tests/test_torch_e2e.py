@@ -125,6 +125,11 @@ def test_chip_smoke_main_phase_runs_on_cpu():
     out = smoke.phase_main("cpu", image=32, requests=2, big_batch=2)
     assert out["conv_blocks"] == 53 and out["launches"] == 0
     assert out["requests"] == [1, 1, 2]
+    setup = out["setup_split"]
+    assert setup["seconds"]["compile"] > 0
+    assert [p["bucket"] for p in setup["plans"]] == [1, 2]
+    assert all(p["passes"] for p in setup["plans"])
+    assert setup["counters"]["plans_built"] == 2
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "int8"])
