@@ -27,11 +27,21 @@ Phases, each a function of a device and a size:
                 Inception's 1x7, 7x1, 1x3, 3x1 and 5x5 taps, SSD's heads
                 as plain conv2d nodes at K = 18,432), each case naming
                 the route it took and two launches bit-identical;
+   b1_wide    — B1 at resnet50.offline's batch of 32: every distinct conv
+                of ResNet-50's batch-32 plan and the wide route's edges
+                (a DenseNet concat store with its copy-through, Inception's
+                1x7) against the plain version as in phase 2; per conv of
+                that plan and of VGG-16's batch-1 plan its route and tile,
+                its kernel ms on its route and on the sm90 route alone, and
+                cuDNN's fp32 conv's, beside its bound; B1's launches by
+                route over a batch-32 ResNet-50 predict (52 wide, 1 sm90)
+                and its time by conv node there, on both routes;
 3. main       — ``compile("resnet-50", (1, 3, 224, 224))`` on the card
                 answers 8 batch-1 requests and one batch-8 request; every
                 predict must launch B1 once per conv node, every launch on
-                its sm90 route, and every request's outputs (the batch-8
-                one too) must match a CPU session of the same seed and
+                one of its routes (``B1_ROUTES``: sm90, or sm90_wide where
+                the grid fills the card), and every request's outputs (the
+                batch-8 one too) must match a CPU session of the same seed and
                 plan; the line carries the program's cold spans of that
                 session's set-up (``setup_split``: seconds in compile,
                 specialize, plan, bind and kernel.load, each plan's
@@ -124,7 +134,7 @@ Phases, each a function of a device and a size:
                 bandwidth probed on the same clock): compile seconds,
                 searches, measurements and the workloads the tie-break
                 decided, ``transform_bw``, each plan's transforms, B1 once
-                per conv node a predict (all sm90), both plans' latency
+                per conv node a predict (all on B1_ROUTES), both plans' latency
                 (interleaved A, B, B, A), device time by node group and
                 B1's time on each conv node the plans block differently;
                 every distinct conv of the measured plan held against B1's
@@ -175,7 +185,7 @@ Phases, each a function of a device and a size:
                 ``FleetServer`` under a memory budget that evicts.  Every
                 response must be bit-identical to ``padded_predict`` at
                 its bucket, streamed tokens equal ``generate``'s, B1
-                launch 53 times a served batch (sm90) and B4 24 times a
+                launch 53 times a served batch (B1_ROUTES) and B4 24 times a
                 streamed prefill; nothing may fail outside the chaos step.
    launch     — A9 on the card (``phase_launch``), while phase 10's
                 artifacts still exist: the serving command line
@@ -196,14 +206,14 @@ Phases, each a function of a device and a size:
                 ``model_bytes``, ``ideal_step_s`` over phase 8's device
                 time of the step).  Every served output must be
                 bit-identical to ``padded_predict`` at one of the buckets,
-                B1 launch 53 times a served batch (sm90), B4 24 times a
+                B1 launch 53 times a served batch (B1_ROUTES), B4 24 times a
                 streamed prefill, the first stream's tokens equal
                 ``generate``'s, nothing searched, and each ``--arch`` run's
                 kernels launch as its family predicts (B3 on its fp32
                 route, B2 in the moe configs, B4 in mamba2).
    multidevice — A10b on the card (``phase_multidevice``), after launch:
                 ResNet-50 @224 compiled with ``devices=1`` through the
-                batch-sharded executor, 53 B1 launches a predict (sm90),
+                batch-sharded executor, 53 B1 launches a predict (B1_ROUTES),
                 outputs bit-identical to phase 3's session; a ``devices=2``
                 artifact saved with its source on the CPU at 64, loaded on
                 the card re-targeted to ``devices=1``, held to the CPU's
@@ -226,7 +236,7 @@ Phases, each a function of a device and a size:
                 state saved and ``restore(shardings=)``'d onto the mesh,
                 every shard bit-identical and the next step equal; and
                 the three examples of ``repro_torch.examples`` at image
-                32 (B1 on sm90 in ``quickstart`` and
+                32 (B1 on B1_ROUTES in ``quickstart`` and
                 ``serve_planned_cnn``; ``train_lm_fault_tolerant``
                 against its run on the CPU);
    train      — A10a on the card (``phase_train``), after every earlier
@@ -299,7 +309,13 @@ the serving phase alone, on sessions it compiles itself,
 
     python3 chip_smoke.py --train-only
 
-the train phase alone (after the parallel build), and
+the train phase alone (after the parallel build),
+
+    python3 chip_smoke.py --b1-only
+
+B1's build (ptxas's report, the launch plans' shared memory against the
+kernel's) and the b1_wide phase alone, lines also in
+``chiprun_out/chip_smoke_b1.json``, and
 
     python3 chip_smoke.py --b3-times [CHECKOUT]
 
@@ -437,10 +453,11 @@ def plan_shapes(c) -> tuple:
 
 
 def b1_plan_report() -> dict:
-    """B1's launch plan at every conv of ResNet-50's plan (batch 1 and 8):
-    the dynamic shared memory the kernel computes for it against the
-    wrapper's ``smem_bytes`` (they must agree), and the stem's recompute
-    factor (conv values computed over the layer's, and wgmma rows)."""
+    """B1's launch plan at every conv of ResNet-50's plan (batch 1, 8 and
+    32): the dynamic shared memory the kernel computes for it against the
+    wrapper's ``smem_bytes`` or ``wide_smem_bytes`` (they must agree), and
+    the stem's recompute factor (conv values computed over the layer's,
+    and wgmma rows)."""
     import ctypes
 
     from repro_torch.kernels import build as kbuild
@@ -448,11 +465,14 @@ def b1_plan_report() -> dict:
 
     query = kbuild.entry("conv2d_nchwc_sm90", "conv2d_sm90_smem",
                          [ctypes.c_int] * 2)
+    query_wide = kbuild.entry("conv2d_nchwc_sm90", "conv2d_sm90_wide_smem",
+                              [ctypes.c_int])
     smem, stem = {}, {}
-    for batch in (1, BIG_BATCH):
+    for batch in (1, BIG_BATCH, WIDE_BATCH):
         for c in plan_convs(MODEL, batch, IMAGE):
             plan = launch_plan(*plan_shapes(c))
-            got = query(plan["kt_per"], plan["ch"] * plan["cw"])
+            got = query_wide(plan["bn"]) if plan["route"] == "sm90_wide" \
+                else query(plan["kt_per"], plan["ch"] * plan["cw"])
             if got != plan["smem"]:
                 raise RuntimeError(f"B1 {wl_name(c)}: the kernel lays out "
                                    f"{got} bytes, the plan {plan['smem']}")
@@ -650,6 +670,142 @@ def phase_kernels(device, convs: list) -> float:
     return worst
 
 
+B1_ROUTES = ("sm90", "sm90_wide")
+WIDE_BATCH = 32                # the batch of resnet50.offline
+# the plans whose convs phase_b1_wide times on both routes: the benchmark's
+# two cells (resnet50.offline, vgg16.single_stream)
+WIDE_TIMED = ((MODEL, WIDE_BATCH, IMAGE), ("vgg-16", 1, 224))
+
+
+def b1_routed(by_route: dict, n: int) -> bool:
+    """Whether B1's launches by route (``launches_by_route``, zeros
+    optional) are ``n`` in all, every one on a route of the card."""
+    return set(by_route) <= set(B1_ROUTES) \
+        and sum(by_route.values()) == n
+
+
+def wide_cases() -> list:
+    """The wide route's edges that ResNet-50 at batch 32 does not reach: a
+    DenseNet-style concat-offset store with its copy-through (the 3x3
+    growth conv, 32 columns) and Inception's 1x7 taps."""
+    from repro_torch.core.schedule import ConvWorkload
+
+    dense = ConvWorkload(batch=WIDE_BATCH, in_channels=128, out_channels=32,
+                         height=28, width=28, kh=3, kw=3, pad=1,
+                         fused_bn=True, fused_relu=True,
+                         concat_offset=64, concat_total=160)
+    tap17 = ConvWorkload(batch=WIDE_BATCH, in_channels=128,
+                         out_channels=128, height=17, width=17, kh=1, kw=7,
+                         pad=0, pad_w=3, fused_bn=True, fused_relu=True)
+    return [{"name": "densenet_concat_b32", "wl": dense, "ic_bn": 32,
+             "oc_bn": 32, "count": 0},
+            {"name": "inception_1x7_b32", "wl": tap17, "ic_bn": 64,
+             "oc_bn": 128, "count": 0}]
+
+
+@contextlib.contextmanager
+def sm90_only():
+    """B1's plans with the wide route taken away, so that every conv runs
+    on the sm90 route: the two routes compared on one shape."""
+    from repro_torch.kernels import conv2d_nchwc as kmod
+
+    wide_tile = kmod.wide_tile
+    kmod.wide_tile = lambda m, ncols: 0
+    kmod._plan.cache_clear()
+    kmod._geometry.cache_clear()
+    try:
+        yield
+    finally:
+        kmod.wide_tile = wide_tile
+        kmod._plan.cache_clear()
+        kmod._geometry.cache_clear()
+
+
+def phase_b1_wide(device, smi: str, iters: int = 20) -> dict:
+    """B1 at ``resnet50.offline``'s batch: every distinct conv of
+    ResNet-50's batch-32 plan and ``wide_cases`` against the plain version
+    (``phase_kernels``: the route ``_route`` names, two launches
+    bit-identical), then per conv of the ``WIDE_TIMED`` plans its route
+    and tile, its kernel ms on its route and on the sm90 route
+    (``sm90_only``) and cuDNN's fp32 ``F.conv2d`` (TF32 off) by CUDA
+    events, beside its bound; and B1's launches by route over one
+    batch-32 predict of ``compile("resnet-50", (32, 3, 224, 224))``, and
+    its time by conv node there (``b1_ms_by_node``) on its routes and on
+    the sm90 route alone."""
+    import torch.nn.functional as F
+
+    from repro_torch.engine import compile as compile_model
+    from repro_torch.kernels.conv2d_nchwc import conv2d_nchwc, launch_plan
+
+    convs = plan_convs(MODEL, WIDE_BATCH, IMAGE)
+    worst = phase_kernels(device, convs + wide_cases())
+    timed = [dict(c, model=model, batch=batch)
+             for model, batch, image in WIDE_TIMED
+             for c in plan_convs(model, batch, image)]
+    rows = []
+    for c in timed:
+        case = make_case(c["wl"], c["ic_bn"], c["oc_bn"], device,
+                         shift=c.get("shift", True))
+        plan = launch_plan(case["x"].shape, case["w"].shape, case["stride"],
+                           case["spec"])
+
+        def kernel():
+            return run_case(case, plain=False)
+
+        ms = cuda_ms(kernel, iters)
+        with sm90_only():
+            sm90_ms = cuda_ms(kernel, iters)
+        lib_ms = cuda_ms(lambda: F.conv2d(
+            case["x_nchw"], case["w_kcrs"], case["shift_vec"],
+            stride=case["stride"], padding=case["pad"]), iters)
+        row = {"phase": "b1_wide", "model": c["model"], "batch": c["batch"],
+               "case": wl_name(c), "count": c["count"],
+               "route": plan["route"], "tile": [plan["bm"], plan["bn"]],
+               "blocks": plan["tiles_m"] * plan["tiles_n"] * plan["cs"],
+               "ms": ms, "sm90_ms": sm90_ms, "library_ms": lib_ms,
+               **roofline(case, b1_out(case), c["wl"])}
+        emit(row)
+        rows.append(row)
+        del case
+    sess = compile_model(MODEL, (WIDE_BATCH, 3, IMAGE, IMAGE), device=device)
+    x = torch.randn(WIDE_BATCH, 3, IMAGE, IMAGE, device=device)
+    sess.predict(x)
+    torch.cuda.synchronize(device)
+    reset_counts()
+    sess.predict(x)
+    torch.cuda.synchronize(device)
+    by_route = dict(conv2d_nchwc.launches_by_route)
+    n_convs = sum(c["count"] for c in convs)
+    if not b1_routed(by_route, n_convs):
+        raise RuntimeError(f"B1 launches a batch-{WIDE_BATCH} predict by "
+                           f"route {by_route}, expected {n_convs}")
+    # B1's ms by conv node of that predict, on its routes and on sm90 alone
+    by_node = {"routes": b1_ms_by_node(sess, x)}
+    with sm90_only():
+        by_node["sm90"] = b1_ms_by_node(sess, x)
+
+    def total(model, key, route=None):
+        """``key`` summed over a predict's convs of ``model`` (of
+        ``route``)."""
+        return sum(r[key] * r["count"] for r in rows if r["model"] == model
+                   and route in (None, r["route"]))
+
+    out = {"phase": "b1_wide_summary", "card": smi, "max_abs_err": worst,
+           f"launches_by_route_b{WIDE_BATCH}": by_route,
+           f"b1_ms_by_node_b{WIDE_BATCH}": by_node,
+           "per_predict": {
+               f"{m} b{b}": {"ms": total(m, "ms"),
+                             "sm90_ms": total(m, "sm90_ms"),
+                             "library_ms": total(m, "library_ms"),
+                             "bound_ms": total(m, "bound_ms"),
+                             "wide_ms": total(m, "ms", "sm90_wide"),
+                             "wide_sm90_ms": total(m, "sm90_ms",
+                                                   "sm90_wide")}
+               for m, b, _ in WIDE_TIMED}}
+    emit(out)
+    return {"rows": rows, **out}
+
+
 # ---------------------------------------------------------------------------
 # 3. main path
 # ---------------------------------------------------------------------------
@@ -709,7 +865,7 @@ def phase_main(device, image: int = 224, requests: int = 8,
     """The user's path: compile, then answer ``requests`` batch-1 requests
     and one ``big_batch`` request.  Every predict on a CUDA device must
     launch the conv kernel once per conv node (conv_block or conv2d), each
-    launch on its sm90 route, and run no lowering; with
+    launch on one of ``B1_ROUTES``, and run no lowering; with
     ``use_kernel=False`` (and ``dtype``) every predict must run one
     lowering per conv node and launch the kernel no time.  Every output
     must have the plan's shape and
@@ -756,9 +912,9 @@ def phase_main(device, image: int = 224, requests: int = 8,
                if v != lowered0[k]}
     launches = counts["conv2d_nchwc"]
     by_route = dict(conv2d_nchwc.launches_by_route)
-    if on_card and by_route != {"sm90": launches}:
+    if on_card and not b1_routed(by_route, launches):
         raise RuntimeError(f"B1 launches by route {by_route}, expected all "
-                           f"{launches} on sm90")
+                           f"{launches} on {B1_ROUTES}")
     others = {k: v for k, v in counts.items() if k != "conv2d_nchwc" and v}
     if others:
         raise RuntimeError(f"unexpected kernel launches {others}")
@@ -990,7 +1146,7 @@ NODE_GROUPS = {"conv_block": "conv", "conv2d": "conv",
                "batch_norm": "bn_relu_pool", "relu": "bn_relu_pool",
                "max_pool": "bn_relu_pool", "avg_pool": "bn_relu_pool",
                "global_avg_pool": "bn_relu_pool", "dense": "dense"}
-B1_KERNEL = "conv_sm90_kernel"       # the __global__ of conv2d_nchwc_sm90.cu
+B1_KERNEL = "conv_sm90_kernel"       # in the name of each __global__ of B1
 
 
 def device_ms_by_group(fn, iters: int, b1: int,
@@ -1118,12 +1274,12 @@ VARIANT_REQUESTS = 4
 
 def b1_ms_by_node(session, x, iters: int = 5) -> dict:
     """B1's time on the card for each conv node of a default session's
-    batch-1 predict, from a profiler trace that holds every launch: the
+    predict of ``x``, from a profiler trace that holds every launch: the
     launches of a predict come in the plan's conv order, so the k-th B1
     kernel of each predict is the k-th conv node's."""
     from torch.autograd import DeviceType
 
-    names = plan_conv_names(session.plan_for(1))
+    names = plan_conv_names(session.plan_for(x.shape[0]))
     n = len(names)
     prof, _, _, gaps = _profiled(lambda: session.predict(x), iters,
                                  b1=iters * n)
@@ -1427,9 +1583,9 @@ def tuned_pair(device, model: str, image: int, budget, xs: list) -> dict:
     and with ``tuning="measured"`` (a fresh database): compile seconds,
     the measured search's searches, measurements and tie-break decisions,
     the probed ``transform_bw``, each plan's transforms, B1's launches a
-    predict (once per conv node, all sm90), the interleaved latencies and
-    each plan's device ms by node group; the measured session held to a
-    CPU session on its database (``held_to_cpu``).  Every distinct conv of
+    predict (once per conv node, all on B1_ROUTES), the interleaved
+    latencies and each plan's device ms by node group; the measured session
+    held to a CPU session on its database (``held_to_cpu``).  Every distinct conv of
     the measured plan goes through ``phase_kernels`` first."""
     from repro_torch.core.calibrate import probe_calls
     from repro_torch.core.local_search import SEARCH_COUNTERS
@@ -1468,9 +1624,9 @@ def tuned_pair(device, model: str, image: int, budget, xs: list) -> dict:
     for k, b1 in launches.items():
         want = n_convs if on_card else 0
         if (b1["launches"] != want or b1["others"]
-                or (on_card and b1["by_route"] != {"sm90": want})):
+                or (on_card and not b1_routed(b1["by_route"], want))):
             raise RuntimeError(f"{model} {k}: B1 launches a predict {b1}, "
-                               f"expected {want}, all sm90")
+                               f"expected {want}, all on {B1_ROUTES}")
     out["b1_per_predict"] = {k: b1["launches"] for k, b1 in launches.items()}
     if on_card:
         la, lb = interleaved_latency(roof, meas, x, TUNING_ITERS)
@@ -3370,8 +3526,8 @@ def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
                   corrupt: bool = False, keep: Path | None = None) -> dict:
     """Save ``session``, load it in a child and hold the child to it: the
     outputs and logits of every request bit for bit, zero searches, the
-    launches of a predict (B1 once per conv node, all sm90, on the kernel
-    path; one lowering a conv node and no B1 on the lowerings), every
+    launches of a predict (B1 once per conv node, all on B1_ROUTES, on the
+    kernel path; one lowering a conv node and no B1 on the lowerings), every
     weight leaf bit for bit; then, where asked, an unseen batch size
     planned from the packed source against the saving session's, and a
     copy with one flipped byte refused.  With ``keep`` the artifact is
@@ -3429,9 +3585,9 @@ def _cnn_artifact(session, name: str, tmp: Path, xs: list, device,
         raise RuntimeError(f"{name}: B1 launches per predict {per}, "
                            f"expected {b1} each; other launches {others}")
     routes = {k: v for k, v in res["b1_launches_by_route"].items() if v}
-    if routes != ({"sm90": sum(per)} if b1 else {}):
+    if not b1_routed(routes, sum(per)) if b1 else routes:
         raise RuntimeError(f"{name}: B1 launches by route {routes}, "
-                           f"expected all {sum(per)} on sm90")
+                           f"expected all {sum(per)} on {B1_ROUTES}")
     lowerings = 0 if session.use_kernel else n_convs
     if res["lowerings_per_request"] != [lowerings] * len(xs):
         raise RuntimeError(f"{name}: lowerings per predict "
@@ -4317,7 +4473,7 @@ def _check_served(name: str, run: dict, sess, x: np.ndarray, n: int,
     completed, no search, the last output (of input ``x``) bit-identical
     to ``padded_predict`` at one of the buckets, and on the kernel path B1
     once per conv node a served batch (and a warm-up predict a bucket),
-    all sm90, no other kernel."""
+    all on B1_ROUTES, no other kernel."""
     from repro_torch.engine import padded_predict
 
     st = run["servers"][0].stats
@@ -4336,7 +4492,7 @@ def _check_served(name: str, run: dict, sess, x: np.ndarray, n: int,
     per_batch = (b1 - warm) / st.n_batches
     others = {k: v for k, v in run["launches"].items()
               if k != "conv2d_nchwc" and v}
-    if per_batch != want or others or run["b1_routes"]["sm90"] != b1:
+    if per_batch != want or others or not b1_routed(run["b1_routes"], b1):
         raise RuntimeError(f"{name}: B1 {per_batch} a served batch "
                            f"(expected {want}), by route {run['b1_routes']},"
                            f" other launches {others}")
@@ -5373,9 +5529,9 @@ def multidevice_cnn(device, main_run: dict, model: str = MODEL,
                     image: int = IMAGE, small: int = MULTI_SMALL,
                     requests: int = MULTI_REQUESTS) -> dict:
     """The CNN half: ``compile(model, ..., devices=1)`` against
-    ``main_run``'s session (B1 once per conv node a predict, all sm90 on
-    the card; outputs bit-identical); a ``devices=2`` artifact saved on
-    the CPU with its source at ``small``, loaded on ``device`` re-targeted
+    ``main_run``'s session (B1 once per conv node a predict, all on
+    B1_ROUTES on the card; outputs bit-identical); a ``devices=2``
+    artifact saved on the CPU with its source at ``small``, loaded on ``device`` re-targeted
     to ``devices=1`` and held to the CPU's ``devices=2`` predict as
     ``phase_main`` holds the card to the CPU; ``compile`` and the serving
     command line asking for one more card than are visible must raise
@@ -5401,7 +5557,7 @@ def multidevice_cnn(device, main_run: dict, model: str = MODEL,
     if any(n != want_n for n in per_predict):
         raise RuntimeError(f"devices=1: B1 launches per predict "
                            f"{per_predict}, expected {want_n} each")
-    if on_card and by_route != {"sm90": sum(per_predict)}:
+    if on_card and not b1_routed(by_route, sum(per_predict)):
         raise RuntimeError(f"devices=1: B1 launches by route {by_route}")
     if not all(same):
         raise RuntimeError("devices=1: outputs differ from phase_main's "
@@ -5816,9 +5972,10 @@ def multidevice_examples(device, tmp: Path,
                            "from padded_predict at every bucket")
     for name in ("quickstart", "serve_planned_cnn"):
         n = out[name]["launches"]["conv2d_nchwc"]
-        if on_card and (n == 0 or out[name]["b1_routes"] != {"sm90": n}):
+        if on_card and (n == 0 or not b1_routed(out[name]["b1_routes"], n)):
             raise RuntimeError(f"{name}: B1 launches {n} by route "
-                               f"{out[name]['b1_routes']}, expected sm90")
+                               f"{out[name]['b1_routes']}, expected "
+                               f"{B1_ROUTES}")
     ft = run("train_lm_fault_tolerant", train_lm_fault_tolerant.main,
              ["--device", dev, "--ckpt-dir", str(tmp / "ft")])
     buf = io.StringIO()
@@ -6074,6 +6231,22 @@ def b3_times(device, smi: str, tree: Path, iters: int = 20) -> int:
     return 0
 
 
+def b1_only(device, smi: str) -> int:
+    """B1's build (its ptxas report and its plan report) and
+    ``phase_b1_wide``, lines in ``chiprun_out/chip_smoke_b1.json``."""
+    from repro_torch.kernels import build as kbuild
+
+    build = _build_report("conv2d_nchwc_sm90",
+                          kbuild.build("conv2d_nchwc_sm90"))
+    build.update(b1_plan_report())
+    emit(build)
+    out = {"card": smi, "build": build, "b1_wide": phase_b1_wide(device, smi)}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_b1.json").write_text(json.dumps(out, indent=1))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--load-artifact"]:
         return load_artifact(sys.argv[2:])
@@ -6114,6 +6287,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--b3-times"] and len(sys.argv) <= 3:
         return b3_times(device, smi, Path(sys.argv[2]).resolve()
                         if len(sys.argv) == 3 else ROOT)
+    if sys.argv[1:] == ["--b1-only"]:
+        return b1_only(device, smi)
 
     build = phase_build()
     convs = plan_convs(MODEL, 1, IMAGE)
@@ -6122,6 +6297,8 @@ def main() -> int:
     memory = []
     worst = phase_kernels(device, convs + plan_convs(MODEL, BIG_BATCH, IMAGE)
                           + extra_cases())
+    b1_wide = phase_b1_wide(device, smi)
+    memory.append(memory_line("b1_wide", device))
     zoo_convs = {m: plan_convs(m, 1, image) for m, image in ZOO}
     zoo_worst = phase_kernels(device, [c for cs in zoo_convs.values()
                                        for c in cs])
@@ -6342,7 +6519,7 @@ def main() -> int:
     lm_main = [{k: v for k, v in r.items()
                 if k not in ("session", "big_session")}
                for r in lm_runs.values()]
-    result = {"card": smi, "build": build, "convs": rows,
+    result = {"card": smi, "build": build, "convs": rows, "b1_wide": b1_wide,
               "main": {k: v for k, v in main_run.items() if k != "session"},
               "latency": latency, "profile": profile,
               "lm_main": lm_main, "lm_parity": parity, "a8": a8,

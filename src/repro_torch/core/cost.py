@@ -41,6 +41,12 @@ B1_CS_MAX = 8
 B1_MIN_KT = 4
 B1_POOL_PATCH = 8
 B1_ROW_BYTES = 128
+# and its wide route's (``wide_tile``, ``wide_smem_bytes``): rows of a
+# block, its tile widths, the B stages of its ring, a tile's fixed work
+B1_WIDE_BM = 128
+B1_WIDE_BN = (128, 64)
+B1_WIDE_STAGES = 6
+B1_WIDE_TILE_COST = 32
 
 WORKING_SETS = ("blocked_loop", "b1_launch")
 
@@ -150,18 +156,44 @@ def wave_utilization(wl: ConvWorkload, machine: MachineModel) -> float:
     return tiles / (-(-tiles // machine.cores) * machine.cores)
 
 
-def b1_smem_bytes(wl: ConvWorkload, machine: MachineModel) -> int:
+def b1_wide_tile(m: int, ncols: int, cores: int) -> int:
+    """B1's wide route's tile width for a GEMM of ``m`` rows and ``ncols``
+    columns on ``cores`` SMs, or 0 (``kernels/conv2d_nchwc.py::wide_tile``,
+    copied)."""
+    tiles_m = -(-m // B1_WIDE_BM)
+    best = None
+    for bn in B1_WIDE_BN:
+        if bn > 64 and ncols <= 64:
+            continue
+        tiles = tiles_m * -(-ncols // bn)
+        cost = -(-tiles // cores) * (bn + B1_WIDE_TILE_COST)
+        if best is None or cost < best[0]:
+            best = (cost, bn, tiles)
+    return best[1] if 2 * best[2] >= cores else 0
+
+
+def b1_smem_bytes(wl: ConvWorkload, machine: MachineModel, ic_bn: int = 0,
+                  oc_bn: int = 0) -> int:
     """The dynamic shared memory B1 stages for this conv, as its launch plan
     lays it out (``kernels/conv2d_nchwc.py::_plan`` and ``smem_bytes``):
     two stages of hi and lo A and B tiles, three int tables of the tile's
     rows, the k-offset table of one block's k tiles (K split over a cluster
     where the output tiles leave SMs idle), a pooled conv's patch of conv
     pixels (shrunk until it fits, as the launch does), and 1,024 bytes of
-    slack.  It does not depend on the schedule: B1 takes its tile from
-    neither ic_bn nor oc_bn."""
+    slack.  An unpooled conv blocked with ``ic_bn % 32 == 0`` and
+    ``oc_bn % 8 == 0`` whose grid fills the card takes the wide route
+    (``wide_smem_bytes``): six stages of B's hi and lo, two barriers a
+    stage, 1,024 bytes of slack.  B1 takes its tile from neither ic_bn nor
+    oc_bn, only its route."""
     bm, bn, bk = machine.tile_m, machine.tile_n, machine.tile_k
     oh, ow = wl.out_hw
     kt = -(-(wl.in_channels // wl.groups) * wl.kh * wl.kw // bk)
+    if (not wl.fused_pool and ic_bn and ic_bn % bk == 0 and oc_bn
+            and oc_bn % 8 == 0):
+        wide = b1_wide_tile(wl.batch * oh * ow, wl.out_channels,
+                            machine.cores)
+        if wide:
+            return B1_WIDE_STAGES * (2 * wide * B1_ROW_BYTES + 16) + 1024
 
     def smem(kt_per: int, patch_rows: int) -> int:
         ring = 2 * (2 * bm * B1_ROW_BYTES + 2 * bn * B1_ROW_BYTES)
@@ -297,7 +329,7 @@ def conv_schedule_cost(wl: ConvWorkload, s: ConvSchedule,
                 + epi_bytes) / machine.mem_bw
 
     # schedules whose working set spills fast memory pay a heavy penalty
-    staged = (b1_smem_bytes(wl, machine)
+    staged = (b1_smem_bytes(wl, machine, s.ic_bn, s.oc_bn)
               if machine.working_set == "b1_launch"
               else conv_vmem_bytes(wl, s))
     if staged > machine.fast_mem_bytes:

@@ -79,12 +79,53 @@
 //   its wgmma rows); the conv-resolution tensor never reaches device
 //   memory.
 //
-// The launch's plan (the cluster size, the pooled patch) comes from the
-// wrapper (kernels/conv2d_nchwc.py::launch_plan), which the CPU tests
-// reach.  The C entry returns the launch's cudaError_t, or
-// cudaErrorInvalidValue for a plan the kernel cannot take.
+// The wide route (conv_sm90_kernel_wide): the unpooled convs at large M.
+// At batch 32 the 64 x 64 tile above runs at a third of what 3xTF32
+// allows: each of its m64n32k8 wgmmas reads 3 KB of shared memory for 16 K
+// MACs, and the threads write every stage's A and B split into hi and lo,
+// so shared memory (128 bytes a clock) needs about twice the tensor cores'
+// time; and every stage ends with the whole block waiting on its wgmmas
+// and a barrier.  The wide loop is bound by the tensor cores: at 1,024
+// tf32 MACs a clock an SM, a stage's 24 m64n128k8 wgmmas take ~1,540
+// clocks, and its shared-memory traffic (B read by the wgmmas 96 KB,
+// written by TMA 32 KB) ~1,000.
+// * A block owns 128 rows (two warpgroups of 64) and BN = 128 columns (64
+//   where N is 64, or where the grid at 128 would leave SMs idle: the
+//   wrapper's plan decides), wgmma m64nBNk8 with A in registers.  No
+//   producer warp: with 8 warps a thread may have 255 registers (a ninth
+//   warp caps them at 168, and the 128-column loop spilled there).
+// * A never passes through shared memory.  Each thread loads its own A
+//   values of a stage, two rows x 8 k, straight from x into registers
+//   (icb % 32 == 0, so a stage's 32 k lie in one tap), two stages ahead:
+//   16-byte loads, a warp's four lanes of a row on 64 neighbouring bytes.
+//   It splits them into hi and lo there.  (Staged by one producer warp's
+//   cp.async, A took longer to arrive than the products took to run.)
+// * The weight is split once, by the wrapper, when a weight tensor first
+//   takes this route (kernels/conv2d_nchwc.py::split_weight): hi and lo of
+//   each column's K in a row of its own (K-major, what wgmma reads), each
+//   stage's 32 k reordered so that slot j of k step kk holds
+//   k = 16 (kk / 2) + 4 (j % 4) + 2 (kk % 2) + j / 4, the thread's own A
+//   values in the order they load.  One thread has TMA load B's hi and lo
+//   into a ring of 6 stages, 4 ahead; full and empty mbarriers pace it.
+// * Each stage's 12 products a warpgroup (lo*hi, hi*lo, hi*hi for each k
+//   step) start from zero and meet the fp32 sums in registers, rounded to
+//   nearest, every 32 of K, as above.  The two warpgroups take turns to
+//   issue a stage (two named barriers), so one sums its stage and splits
+//   the next while the other's products run; no barrier spans the block
+//   in the loop.
+// * Epilogue straight from the registers: scale, shift, residual, ReLU,
+//   two neighbouring channels of a row at a time, then the concat's
+//   copy-through.  No atomics: two launches are bit-identical.
+//
+// The launch's plan (the route, the cluster size, the pooled patch, the
+// wide tile) comes from the wrapper (kernels/conv2d_nchwc.py::launch_plan),
+// which the CPU tests reach.  The C entry returns the launch's
+// cudaError_t, 10000 + the CUresult of cuTensorMapEncodeTiled, 20000 when
+// libcuda has no such encoder, or cudaErrorInvalidValue for a plan the
+// kernel cannot take.
 
 #include <math.h>
+#include <string.h>
 
 #include "sm90.cuh"
 
@@ -198,6 +239,26 @@ __device__ __forceinline__ float epilogue(const Conv& p, float v,
   if (p.res) v = v + r;
   if (p.relu) v = fmaxf(v, 0.f);
   return v;
+}
+
+// concat: the chunks of the buffer that this conv does not own, copied
+// through by every block of the grid (of `threads` threads), a share each
+__device__ __forceinline__ void copy_through(const Conv& p, int threads) {
+  const long long plane = (long long)p.ph * p.pw * p.ocb;
+  const int others = p.out_chunks - p.ko;
+  const long long total = (long long)p.n * others * plane;
+  const long long blocks = (long long)gridDim.x * gridDim.y * gridDim.z;
+  const long long b = blockIdx.x + gridDim.x * (blockIdx.y +
+                                                (long long)gridDim.y *
+                                                    blockIdx.z);
+  for (long long i = b * threads + threadIdx.x; i < total;
+       i += blocks * threads) {
+    const long long e = i % plane, rest = i / plane;
+    const int cj = (int)(rest % others), nn = (int)(rest / others);
+    const int chunk = cj < p.off_chunks ? cj : cj + p.ko;
+    const long long at = ((long long)nn * p.out_chunks + chunk) * plane + e;
+    p.out[at] = p.buf[at];
+  }
 }
 
 template <int VEC, bool POOL>
@@ -483,24 +544,242 @@ conv_sm90_kernel(const __grid_constant__ Conv p) {
     }
   }
 
-  // concat: the chunks of the buffer that this conv does not own, copied
-  // through by every block, a share each
-  if (p.out_chunks != p.ko) {
-    const long long plane = (long long)p.ph * p.pw * p.ocb;
-    const int others = p.out_chunks - p.ko;
-    const long long total = (long long)p.n * others * plane;
-    const long long blocks = (long long)gridDim.x * gridDim.y * gridDim.z;
-    const long long b = blockIdx.x + gridDim.x * (blockIdx.y +
-                                                  (long long)gridDim.y *
-                                                      blockIdx.z);
-    for (long long i = b * THREADS + tid; i < total; i += blocks * THREADS) {
-      const long long e = i % plane, rest = i / plane;
-      const int cj = (int)(rest % others), nn = (int)(rest / others);
-      const int chunk = cj < p.off_chunks ? cj : cj + p.ko;
-      const long long at = ((long long)nn * p.out_chunks + chunk) * plane + e;
-      p.out[at] = p.buf[at];
+  if (p.out_chunks != p.ko) copy_through(p, THREADS);
+}
+
+// ---- the wide route --------------------------------------------------------
+
+constexpr int WBM = 128;                 // rows a block: two warpgroups of 64
+constexpr int WST = 6;                   // B's stages in the ring
+constexpr int WLA = WST - 2;             // stages B is loaded ahead
+constexpr int WPF = 2;                   // stages A is loaded ahead
+constexpr int WTHREADS = 2 * 128;        // two consumer warpgroups
+constexpr int PANEL = 64;                // B rows of one TMA box
+constexpr int EMPTY_ARRIVALS = 8;        // a lane of each warp
+constexpr int TURN0 = 1, TURN1 = 2;      // named barriers: a warpgroup's turn
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int BN>
+struct Wide {
+  static constexpr int B_BYTES = BN * 128;            // B's hi, or its lo
+  static constexpr int STAGE = 2 * B_BYTES;
+  static constexpr int BAR_OFF = WST * STAGE;
+  static constexpr int SMEM = BAR_OFF + 2 * WST * 8 + 1024;
+  static_assert(B_BYTES % 1024 == 0, "swizzle atoms");
+};
+
+template <int BN>
+__global__ void __launch_bounds__(WTHREADS, 1)
+conv_sm90_kernel_wide(const __grid_constant__ Conv p,
+                      const __grid_constant__ CUtensorMap tb) {
+  using W = Wide<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = base + W::BAR_OFF, empty = full + 8 * WST;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4;               // rows [64 wg, 64 wg + 64)
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * WBM;
+  const int nt = p.ktot / BK;
+  const int hw = p.oh * p.ow;
+  const int live = min(BN / PANEL, (p.ncols - n0 + PANEL - 1) / PANEL);
+  // B of stage t, hi and lo, into its slot by TMA: the panels that hold a
+  // column < N
+  auto load_b = [&](int t) {
+    const uint32_t st = base + (t % WST) * W::STAGE;
+    const uint32_t bar = full + 8 * (t % WST);
+    mbar_expect_tx(bar, 2 * live * PANEL * 128);
+    for (int h = 0; h < 2; ++h)
+      for (int pn = 0; pn < live; ++pn)
+        tma_load_3d(st + h * W::B_BYTES + pn * PANEL * 128, &tb, bar, t * BK,
+                    n0 + pn * PANEL, h);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < WST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, EMPTY_ARRIVALS);
+    }
+    mbar_init_fence();
+    for (int t = 0; t < min(WLA, nt); ++t) load_b(t);
+  }
+  __syncthreads();
+
+  // This thread's rows r0 and r0 + 8, and its k of each stage: 4 c4 .. +3
+  // and 16 + 4 c4 .. +3, as slot c4 (a[0], a[1]) and c4 + 4 (a[2], a[3])
+  // of its k steps (kernels/conv2d_nchwc.py::WIDE_K_ORDER)
+  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int c4 = lane % 4;
+  int xrow[2];                           // the rows' offsets in x; -1 past M
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + r0 + 8 * h;
+    const int n = m / hw, r = m - n * hw, oh = r / p.ow, ow = r - oh * p.ow;
+    xrow[h] = m < p.mrows ? ((n * p.ci * p.hp + oh * p.stride) * p.wp +
+                             ow * p.stride) * p.icb + 4 * c4
+                          : -1;
+  }
+  // A of the next stage to load, from x straight into registers: its 32 k
+  // lie in one tap (ci, dh, dw) from channel ic (icb % 32 == 0)
+  int ic = 0, dw = 0, dh = 0, ci = 0;
+  auto load_a = [&](float4 (&a)[4]) {
+    const int koff = ((ci * p.hp + dh) * p.wp + dw) * p.icb + ic;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        a[2 * h + e] = xrow[h] >= 0
+                           ? __ldg(reinterpret_cast<const float4*>(
+                                 p.x + xrow[h] + koff + 16 * e))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    ic += BK;
+    if (ic == p.icb) {
+      ic = 0;
+      if (++dw == p.kw) {
+        dw = 0;
+        if (++dh == p.kh) {
+          dh = 0;
+          ++ci;
+        }
+      }
+    }
+  };
+
+  float acc[BN / 2];                     // the fp32 sums, rounded to nearest
+  float part[BN / 2];                    // one stage's, on the tensor cores
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  float4 ra[WPF][4];                     // A of stages t .. t + WPF - 1
+#pragma unroll
+  for (int j = 0; j < WPF; ++j)
+    if (j < nt) load_a(ra[j]);
+  // the warpgroups take turns to issue a stage's products, so that one
+  // sums its stage and splits the next while the other's run
+  if (wg == 1) bar_arrive(TURN0, WTHREADS);
+
+  auto step = [&](int t, float4 (&cur)[4]) {
+    const int s = t % WST;
+    // k step kk: row r0's values in a[0] (slot c4) and a[2] (slot c4 + 4),
+    // row r0 + 8's in a[1] and a[3]
+    uint32_t ahi[BK / 8][4], alo[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const float4 u = cur[kk / 2], v = cur[2 + kk / 2];
+      const float f[4] = {kk & 1 ? u.z : u.x, kk & 1 ? v.z : v.x,
+                          kk & 1 ? u.w : u.y, kk & 1 ? v.w : v.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float hi = tf32(f[e]);
+        ahi[kk][e] = __float_as_uint(hi);
+        alo[kk][e] = __float_as_uint(tf32(f[e] - hi));
+      }
+    }
+    if (t + WPF < nt) load_a(cur);
+    mbar_wait(full + 8 * s, (t / WST) & 1);
+    bar_sync(wg == 0 ? TURN0 : TURN1, WTHREADS);
+    const uint32_t b_s = base + s * W::STAGE;
+    fence_regs(part);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint64_t b_hi = sw128_desc(b_s + kk * 32, 16, 1024);
+      const uint64_t b_lo = sw128_desc(b_s + W::B_BYTES + kk * 32, 16, 1024);
+      wgmma_tf32_rs(part, alo[kk], b_hi, kk > 0);
+      wgmma_tf32_rs(part, ahi[kk], b_lo, 1);
+      wgmma_tf32_rs(part, ahi[kk], b_hi, 1);
+    }
+    wg_commit();
+    if (wg == 0 || t + 1 < nt) bar_arrive(wg == 0 ? TURN1 : TURN0, WTHREADS);
+    // B of stage t + WLA, into the slot of stage t - 2: warpgroup 1 has
+    // issued stage t - 1 (its turn came before this one), so it is done
+    // with stage t - 2
+    if (tid == 0 && t + WLA < nt) {
+      if (t + WLA >= WST)
+        mbar_wait(empty + 8 * ((t + WLA) % WST),
+                  (((t + WLA) / WST) & 1) ^ 1);
+      load_b(t + WLA);
+    }
+    wg_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      fence_regs(ahi[kk]);
+      fence_regs(alo[kk]);
+    }
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    // the stage's 12 products summed on the tensor cores (toward zero),
+    // the stages here, rounded to nearest
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+  };
+  for (int t0 = 0; t0 < nt; t0 += WPF)
+#pragma unroll
+    for (int j = 0; j < WPF; ++j)
+      if (t0 + j < nt) step(t0 + j, ra[j]);
+
+  // epilogue: acc[4j + e] is row r0 (+ 8 for e >= 2), column
+  // n0 + 8j + 2 c4 + (e & 1); a group of 8 columns lies in one chunk
+  // (ocb % 8 == 0)
+  int orow[2], rrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + r0 + 8 * h;
+    const int n = m / hw, r = m - n * hw;
+    orow[h] = m < p.mrows
+                  ? ((n * p.out_chunks + p.off_chunks) * hw + r) * p.ocb
+                  : -1;
+    rrow[h] = (n * p.ko * hw + r) * p.ocb;
+  }
+  int coff[BN / 8];                      // column 8j + 2 c4's offset
+  {
+    const int col = n0 + 2 * c4;
+    int kc = col / p.ocb, oc = col - kc * p.ocb;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      coff[j] = kc * hw * p.ocb + oc;
+      oc += 8;
+      if (oc >= p.ocb) {
+        oc -= p.ocb;
+        ++kc;
+      }
     }
   }
+  float2 res[2][BN / 8];                 // the residual, all loads first
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      res[h][j] = make_float2(0.f, 0.f);
+      if (p.res && orow[h] >= 0 && n0 + 8 * j + 2 * c4 < p.ncols)
+        res[h][j] = __ldg(
+            reinterpret_cast<const float2*>(p.res + rrow[h] + coff[j]));
+    }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * c4;
+    if (col >= p.ncols) continue;
+    Col c0{1.f, 0.f, 0, true}, c1{1.f, 0.f, 0, true};
+    if (p.scale) {
+      c0.scale = __ldg(p.scale + col);
+      c1.scale = __ldg(p.scale + col + 1);
+    }
+    if (p.shift) {
+      c0.shift = __ldg(p.shift + col);
+      c1.shift = __ldg(p.shift + col + 1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (orow[h] < 0) continue;
+      *reinterpret_cast<float2*>(p.out + orow[h] + coff[j]) = make_float2(
+          epilogue(p, acc[4 * j + 2 * h], c0, res[h][j].x),
+          epilogue(p, acc[4 * j + 2 * h + 1], c1, res[h][j].y));
+    }
+  }
+  if (p.out_chunks != p.ko) copy_through(p, WTHREADS);
 }
 
 int round16(int b) { return (b + 15) / 16 * 16; }
@@ -544,21 +823,55 @@ int launch(const Conv& p, int cs, int tiles_m, int smem, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// A 3-D map over the split weight (2, ncols, ktot) fp32 (hi, then lo; K
+// innermost), boxes of 32 k x 64 columns x 1, 128-byte swizzle; columns
+// past ncols read as zeros.
+int encode_wide(EncodeTiled fn, CUtensorMap* map, const float* b, int ncols,
+                int ktot) {
+  const cuuint64_t dims[3] = {(cuuint64_t)ktot, (cuuint64_t)ncols, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)ktot * 4,
+                                 (cuuint64_t)ktot * ncols * 4};
+  const cuuint32_t box[3] = {BK, PANEL, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<float*>(b), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+template <int BN>
+int launch_wide(const Conv& p, const CUtensorMap& tb, cudaStream_t st) {
+  auto kern = conv_sm90_kernel_wide<BN>;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Wide<BN>::SMEM);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const dim3 grid((p.ncols + BN - 1) / BN, (p.mrows + WBM - 1) / WBM);
+  kern<<<grid, WTHREADS, Wide<BN>::SMEM, st>>>(p, tb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry for ctypes.  Pointers are device pointers (scale, shift, res
-// and buf may be null); stream is a cudaStream_t.  geo holds 25 ints (the
+// and buf may be null); stream is a cudaStream_t.  geo holds 26 ints (the
 // wrapper keeps one array per shape): n, ci, hp, wp, icb, ko, kh, kw, ocb,
 // stride, oh, ow, out_chunks, ph, pw, off_chunks, relu, pool_kind, pool_k,
 // pool_stride, pool_pad, and the launch plan: vec (16- or 4-byte loads of
 // x; 16 needs ICB % 4 == 0 and x 16-byte aligned), cs (the cluster size
-// along K: 1, 2, 4 or 8; 1 when pooled), pph and ppw (the pooled patch).
+// along K: 1, 2, 4 or 8; 1 when pooled), pph and ppw (the pooled patch),
+// wide (0, or the wide route's tile width BN: 64 or 128).  On the wide
+// route w is the split weight (2, ncols, ktot) and wide_map the 128 bytes
+// that conv2d_sm90_wide_map encoded for it; else wide_map is null.
 // Returns the launch's cudaError_t (0 on success); the wrapper validates
 // every shape.
 extern "C" int conv2d_sm90_launch(const float* x, const float* w,
                                   const float* scale, const float* shift,
                                   const float* res, const float* buf,
-                                  float* out, const int* geo, void* stream) {
+                                  float* out, const int* geo,
+                                  const void* wide_map, void* stream) {
   const int n = geo[0], ci = geo[1], hp = geo[2], wp = geo[3], icb = geo[4];
   const int ko = geo[5], kh = geo[6], kw = geo[7], ocb = geo[8];
   const int stride = geo[9], oh = geo[10], ow = geo[11];
@@ -566,10 +879,14 @@ extern "C" int conv2d_sm90_launch(const float* x, const float* w,
   const int off_chunks = geo[15], relu = geo[16], pool_kind = geo[17];
   const int pool_k = geo[18], pool_stride = geo[19], pool_pad = geo[20];
   const int vec = geo[21], cs = geo[22], pph = geo[23], ppw = geo[24];
+  const int wide = geo[25];
   const bool pool = pool_kind != 0;
   if ((vec != 1 && vec != 4) || cs < 1 || cs > CS_MAX || (cs & (cs - 1)) ||
       (pool && cs != 1) || (vec == 4 && icb % 4) ||
       (pool && (pph < 1 || ppw < 1)))
+    return (int)cudaErrorInvalidValue;
+  if (wide && (pool || cs != 1 || vec != 4 || icb % BK || ocb % 8 ||
+               (wide != 64 && wide != 128) || wide_map == nullptr))
     return (int)cudaErrorInvalidValue;
   Conv p{x, w, scale, shift, res, buf, out,
          n, ci, hp, wp, icb, ko, kh, kw, ocb, stride, oh, ow,
@@ -580,6 +897,15 @@ extern "C" int conv2d_sm90_launch(const float* x, const float* w,
   p.mrows = n * oh * ow;
   const int kt_all = (p.ktot + BK - 1) / BK;
   p.kt_per = (kt_all + cs - 1) / cs;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    if (p.mrows == 0 || p.ncols == 0) return 0;
+    if ((p.mrows + WBM - 1) / WBM > 65535) return (int)cudaErrorInvalidValue;
+    alignas(64) CUtensorMap map;
+    memcpy(&map, wide_map, sizeof map);
+    return wide == 128 ? launch_wide<128>(p, map, st)
+                       : launch_wide<64>(p, map, st);
+  }
   int tiles_m;
   if (pool) {
     p.pph = pph;
@@ -598,7 +924,6 @@ extern "C" int conv2d_sm90_launch(const float* x, const float* w,
   const int smem = smem_bytes(p.kt_per, pool ? p.ch * p.cw : 0,
                               &p.table_off, &p.patch_off);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pool)
     return vec == 4 ? launch<4, true>(p, cs, tiles_m, smem, st)
                     : launch<1, true>(p, cs, tiles_m, smem, st);
@@ -611,4 +936,25 @@ extern "C" int conv2d_sm90_launch(const float* x, const float* w,
 extern "C" int conv2d_sm90_smem(int kt_per, int patch_rows) {
   int t, q;
   return smem_bytes(kt_per, patch_rows, &t, &q);
+}
+
+// The dynamic shared memory (bytes) of a wide launch of tile width bn (64 or
+// 128): the ring of 6 stages of B's hi and lo, its barriers, and the slack
+// that aligns the ring to 1,024 bytes.
+extern "C" int conv2d_sm90_wide_smem(int bn) {
+  return bn == 128 ? Wide<128>::SMEM : bn == 64 ? Wide<64>::SMEM : -1;
+}
+
+// Encodes into out (128 bytes of host memory) the tensor map of the wide
+// route's split weight b (2, ncols, ktot) fp32, device memory, 16-byte
+// aligned, ktot % 4 == 0.  Returns 0, 10000 + the CUresult of the encoder,
+// or 20000 when libcuda has none.
+extern "C" int conv2d_sm90_wide_map(const float* b, int ncols, int ktot,
+                                    void* out) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return 20000;
+  alignas(64) CUtensorMap map;
+  const int err = encode_wide(fn, &map, b, ncols, ktot);
+  if (!err) memcpy(out, &map, sizeof map);
+  return err;
 }

@@ -269,6 +269,20 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
         "r"(accumulate));
 }
 
+// d (64 x 128 fp32) = A (64 x 8, registers) * B (8 x 128, smem, K-major)
+// + (accumulate ? d : 0), in tf32; A as for the 64-column form.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : F32(d, 0), F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // ---- small helpers ---------------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -7,13 +7,20 @@ and takes the same tensors: the input pre-padded ``(N, Ci, Hp, Wp, ic_bn)``,
 the weight ``(Ko, Ci, KH, KW, ic_bn, oc_bn)``, optional ``(Ko, oc_bn)``
 scale/shift, an optional residual ``(N, Ko, OH, OW, oc_bn)`` at conv
 resolution, and an optional concat buffer; it returns a new tensor.  The
-route is chosen by shape before any launch (``_route``); it has one:
+route is chosen by shape before any launch (``_route``); it has two, both
+an implicit GEMM on the tensor cores, tf32 wgmma in 3xTF32 (each fp32
+operand split into two tf32 parts, three products summed in fp32):
 
-* ``sm90`` (every fp32 conv): an implicit GEMM on the tensor cores, tf32
-  wgmma in 3xTF32 (each fp32 operand split into two tf32 parts, three
-  products summed in fp32), K split across a thread-block cluster where the
-  output tiles alone would leave the SMs idle, the pooled epilogue from a
-  patch of conv values in shared memory.
+* ``sm90_wide`` (unpooled convs with 16-byte loads, ``ic_bn % 32 == 0``,
+  whose grid of 128-row tiles fills half the card or more): 128 x 128
+  tiles (64 columns where N is 64 or the grid is better filled so), A
+  loaded and split in registers, B split once per weight tensor by the
+  wrapper (``split_weight``, cached while the weight lives) and loaded by
+  TMA into a ring of 6 stages;
+* ``sm90`` (every other fp32 conv: the pooled ones, the RGB stem's 4-byte
+  loads, the small layers of batch 1): 64 x 64 tiles, K split across a
+  thread-block cluster where the output tiles alone would leave the SMs
+  idle, the pooled epilogue from a patch of conv values in shared memory.
 
 Its operations bound it on the H100 (8.17 GFLOP per batch-1 ResNet-50
 predict: 0.0496 ms at 495 TFLOP/s of TF32, three products each, or 0.124 ms
@@ -31,9 +38,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Optional
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from repro_torch.core.epilogue import IDENTITY, EpilogueSpec
 from repro_torch.kernels import build as _build
@@ -137,6 +146,21 @@ SMEM_MAX = 232448            # dynamic shared memory a block may use (bytes)
 INT32_MAX = 2 ** 31 - 1      # the kernel's element offsets are 32-bit
 
 
+# the wide route (``sm90_wide``)
+WIDE_BM = 128                # a block's rows: two consumer warpgroups
+WIDE_BN = (128, 64)          # its columns, the wider first
+WIDE_STAGES = 6              # B's stages in its ring
+WIDE_TILE_COST = 32          # a tile's fixed work (prologue, folds,
+                             # epilogue), in columns of its products
+# The k order of a wide stage: slot j of k step kk holds k 16 (kk // 2) +
+# 4 (j % 4) + 2 (kk % 2) + j // 4 of the stage's 32, so that the A values
+# of a stage that a thread loads, k 4c .. 4c + 3 and 16 + 4c .. 16 + 4c + 3
+# of its rows, are slots c and c + 4 of the k steps in the order loaded
+# (``csrc/conv2d_nchwc_sm90.cu``).
+WIDE_K_ORDER = tuple(16 * (kk // 2) + 4 * (j % 4) + 2 * (kk % 2) + j // 4
+                     for kk in range(BK // 8) for j in range(8))
+
+
 def smem_bytes(kt_per: int, patch_rows: int) -> int:
     """The dynamic shared memory of a launch, as the kernel lays it out
     (``csrc/conv2d_nchwc_sm90.cu::smem_bytes``): two stages of A and B
@@ -147,6 +171,32 @@ def smem_bytes(kt_per: int, patch_rows: int) -> int:
     ring = 2 * (2 * BM * 128 + 2 * BN * 128)
     table = -(-kt_per * BK * 4 // 16) * 16
     return ring + 3 * BM * 4 + table + patch_rows * (BN + 4) * 4 + 1024
+
+
+def wide_smem_bytes(bn: int) -> int:
+    """The dynamic shared memory of a wide launch of tile width ``bn``
+    (``csrc/conv2d_nchwc_sm90.cu::Wide``): 6 stages of B's hi and lo
+    (``bn`` rows of 128 bytes each; A goes straight to registers), a full
+    and an empty barrier a stage, and 1,024 bytes of alignment slack."""
+    return WIDE_STAGES * 2 * bn * 128 + 2 * WIDE_STAGES * 8 + 1024
+
+
+def wide_tile(m: int, ncols: int) -> int:
+    """The wide route's tile width for a GEMM of ``m`` rows and ``ncols``
+    columns, or 0 where its grid would leave more than half the card idle.
+    Of 128 and 64 (64 alone where ``ncols <= 64``), the width whose waves
+    of ``SMS`` blocks cost least, a block costing its width plus
+    ``WIDE_TILE_COST``; the wider on a tie."""
+    tiles_m = -(-m // WIDE_BM)
+    best = None
+    for bn in WIDE_BN:
+        if bn > 64 and ncols <= 64:
+            continue
+        tiles = tiles_m * -(-ncols // bn)
+        cost = -(-tiles // SMS) * (bn + WIDE_TILE_COST)
+        if best is None or cost < best[0]:
+            best = (cost, bn, tiles)
+    return best[1] if 2 * best[2] >= SMS else 0
 
 
 def _conv_hw(x_shape, w_shape, stride: int):
@@ -163,21 +213,32 @@ def launch_plan(x_shape, w_shape, stride: int, spec: EpilogueSpec) -> dict:
 @functools.lru_cache(maxsize=1024)
 def _plan(x_shape: tuple, w_shape: tuple, stride: int,
           spec: EpilogueSpec) -> dict:
-    """How the sm90 kernel splits one conv: ``vec`` (4: 16-byte loads of
-    x, when ic_bn % 4 == 0),
-    ``cs`` blocks of a cluster along K, the pooled patch ``pph`` x ``ppw``
-    and its conv window ``ch`` x ``cw``, ``tiles_m`` row tiles (or
+    """How B1 takes one conv: its ``route`` (``_route``), ``vec`` (4:
+    16-byte loads of x, when ic_bn % 4 == 0), the block's tile ``bm`` x
+    ``bn``, ``cs`` blocks of a cluster along K, the pooled patch ``pph`` x
+    ``ppw`` and its conv window ``ch`` x ``cw``, ``tiles_m`` row tiles (or
     patches), ``tiles_n``, ``kt_per`` k tiles a block, ``smem`` bytes, and
     for a pooled conv the ``recompute`` factor: conv values computed over
-    the conv values of the layer (``mma_rows`` counts the wgmma rows)."""
+    the conv values of the layer (``mma_rows`` counts the wgmma rows).
+    The wide route takes an unpooled conv with 16-byte loads whose k tiles
+    each lie in one tap (ic_bn % 32 == 0) and whose grid fills the card
+    (``wide_tile``); the sm90 route every other."""
     n, ci, _, _, icb = x_shape
     ko, _, kh, kw, _, ocb = w_shape
     oh, ow = _conv_hw(x_shape, w_shape, stride)
     ktot, ncols = ci * kh * kw * icb, ko * ocb
     kt = -(-ktot // BK)
-    plan = {"vec": 4 if icb % 4 == 0 else 1, "pph": 0, "ppw": 0, "ch": 0,
-            "cw": 0}
+    plan = {"route": "sm90", "vec": 4 if icb % 4 == 0 else 1, "bm": BM,
+            "bn": BN, "pph": 0, "ppw": 0, "ch": 0, "cw": 0}
     pool = spec.pool
+    bn = wide_tile(n * oh * ow, ncols) if (
+        pool is None and icb % BK == 0 and ocb % 8 == 0) else 0
+    if bn:
+        plan.update(route="sm90_wide", bm=WIDE_BM, bn=bn, cs=1,
+                    tiles_m=-(-n * oh * ow // WIDE_BM),
+                    tiles_n=-(-ncols // bn), kt_per=kt,
+                    smem=wide_smem_bytes(bn))
+        return plan
     if pool is not None:
         ph, pw = spec.out_hw(oh, ow)
         pph, ppw = min(POOL_PATCH, ph), min(POOL_PATCH, pw)
@@ -223,9 +284,10 @@ def _plan(x_shape: tuple, w_shape: tuple, stride: int,
 
 def _route(x_shape, w_shape, stride: int, spec: EpilogueSpec,
            dtype: torch.dtype = torch.float32) -> str:
-    """The kernel that takes this conv on the card: ``"sm90"`` for every
-    fp32 conv whose launch plan fits the card.  Raises TypeError for
-    another dtype and ValueError for a shape no route takes."""
+    """The kernel that takes this conv on the card, by its launch plan:
+    ``"sm90_wide"`` or ``"sm90"`` (``_plan``), for an fp32 conv whose plan
+    fits the card.  Raises TypeError for another dtype and ValueError for
+    a shape no route takes."""
     if dtype != torch.float32:
         raise TypeError(f"the conv kernel takes float32, got {dtype}")
     if spec.has_matmul_tail:
@@ -234,12 +296,70 @@ def _route(x_shape, w_shape, stride: int, spec: EpilogueSpec,
     if plan["smem"] > SMEM_MAX or plan["tiles_m"] > 65535:
         raise ValueError(f"conv {tuple(x_shape)} * {tuple(w_shape)} does "
                          f"not fit the sm90 kernel's launch ({plan})")
-    return "sm90"
+    return plan["route"]
 
 
 def _launch_fn():
     return _build.entry("conv2d_nchwc_sm90", "conv2d_sm90_launch",
-                        [ctypes.c_void_p] * 9)
+                        [ctypes.c_void_p] * 10)
+
+
+def _wide_map_fn():
+    return _build.entry("conv2d_nchwc_sm90", "conv2d_sm90_wide_map",
+                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p])
+
+
+def rna_tf32(a: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on an fp32 tensor: 10 stored mantissa bits,
+    rounded to nearest with ties away from zero (half of the dropped 13
+    bits' range added to the magnitude, then cut)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weight(w_blocked: torch.Tensor) -> torch.Tensor:
+    """The wide route's B: the weight ``(Ko, Ci, KH, KW, ic, oc)`` as
+    ``(2, Ko * oc, K)`` fp32, its tf32 hi (``rna_tf32(b)``) and lo
+    (``rna_tf32(b - hi)``), each output channel's K in a row (K-major, as
+    wgmma reads B), each stage's 32 k in ``WIDE_K_ORDER``: the values the
+    sm90 route splits in its threads, laid out for TMA."""
+    ko, ci, kh, kw, icb, ocb = w_blocked.shape
+    k = ci * kh * kw * icb
+    b = w_blocked.float().permute(0, 5, 1, 2, 3, 4).reshape(
+        ko * ocb, k // BK, BK)[:, :, list(WIDE_K_ORDER)].reshape(ko * ocb, k)
+    hi = rna_tf32(b)
+    return torch.stack((hi, rna_tf32(b - hi)))
+
+
+# each weight tensor's split and tensor map, while the tensor lives
+_wide_operands = WeakTensorKeyDictionary()
+_wide_lock = threading.Lock()
+
+
+def wide_operand(w_blocked: torch.Tensor) -> tuple:
+    """The split weight (``split_weight``) of a CUDA weight tensor and the
+    128-byte tensor map the kernel's TMA reads it by, made the first time
+    the tensor takes the wide route (a session's first predict, its
+    warm-up) and kept while it lives; made anew if it was written in place
+    since.  The split is complete on the card before it is returned, so a
+    launch on any stream may read it."""
+    version = None if w_blocked.is_inference() else w_blocked._version
+    with _wide_lock:
+        hit = _wide_operands.get(w_blocked)
+        if hit is not None and hit[0] == version:
+            return hit[1], hit[2]
+        with torch.no_grad():
+            b = split_weight(w_blocked)
+        tmap = ctypes.create_string_buffer(128)
+        err = _wide_map_fn()(b.data_ptr(), b.shape[1], b.shape[2],
+                             ctypes.addressof(tmap))
+        if err != 0:
+            raise RuntimeError(f"conv2d_nchwc: the wide route's tensor map "
+                               f"failed ({err})")
+        torch.cuda.current_stream(b.device).synchronize()
+        _wide_operands[w_blocked] = (version, b, tmap)
+        return b, tmap
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -261,7 +381,7 @@ def _geometry(x_shape: tuple, w_shape: tuple, stride: int,
               spec: EpilogueSpec) -> tuple:
     """Everything of a launch that its shapes fix, validated once per
     shape: the route, the plan, the output's, residual's, vectors' and
-    concat buffer's shapes, and the kernel's 25 int arguments (the C
+    concat buffer's shapes, and the kernel's 26 int arguments (the C
     entry's ``geo``) in a ctypes array, with its address."""
     if len(x_shape) != 5 or len(w_shape) != 6:
         raise ValueError(f"expected x (N, Ci, Hp, Wp, ic) and w "
@@ -300,7 +420,8 @@ def _geometry(x_shape: tuple, w_shape: tuple, stride: int,
             _POOL_KINDS[pool.kind if pool else None],
             pool.k if pool else 0, pool.stride if pool else 0,
             pool.pad if pool else 0,
-            plan["vec"], plan["cs"], plan["pph"], plan["ppw"])
+            plan["vec"], plan["cs"], plan["pph"], plan["ppw"],
+            plan["bn"] if route == "sm90_wide" else 0)
     geo = (ctypes.c_int * len(ints))(*ints)
     return (route, plan, torch.Size(out_shape), torch.Size(res_shape),
             torch.Size((ko, ocb)), geo, ctypes.addressof(geo))
@@ -356,9 +477,12 @@ def conv2d_nchwc(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
     def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
         return None if t is None else t.data_ptr()
 
-    args = (ptr(x_blocked), ptr(w_blocked), ptr(scale), ptr(shift),
+    w_arg, tmap = w_blocked, None
+    if route == "sm90_wide":
+        w_arg, tmap = wide_operand(w_blocked)
+    args = (ptr(x_blocked), ptr(w_arg), ptr(scale), ptr(shift),
             ptr(residual), ptr(out_buf if spec.writes_concat else None),
-            ptr(out), geo)
+            ptr(out), geo, None if tmap is None else ctypes.addressof(tmap))
     if dev.index == torch.cuda.current_device():
         err = _launch_fn()(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:
@@ -374,4 +498,4 @@ def conv2d_nchwc(x_blocked: torch.Tensor, w_blocked: torch.Tensor,
 
 
 conv2d_nchwc.launches = 0
-conv2d_nchwc.launches_by_route = {"sm90": 0}
+conv2d_nchwc.launches_by_route = {"sm90": 0, "sm90_wide": 0}

@@ -1,9 +1,13 @@
 """B1's route and arithmetic, on the CPU.
 
 * ``_route`` sends every conv of ResNet-50's plan (batch 1 and 8) and
-  both of ``chip_smoke.extra_cases()`` to the sm90 kernel, and its launch
-  plans fit the card: shared memory, grid, cluster split, and the stem's
-  pooled patch recomputing at most 1.25x its conv work.
+  both of ``chip_smoke.extra_cases()`` to one of B1's two kernels, and its
+  launch plans fit the card: shared memory, grid, cluster split, and the
+  stem's pooled patch recomputing at most 1.25x its conv work.
+* The wide route's choice, conv by conv, at ``resnet50.offline``'s batch
+  (ResNet-50 at 32) and ``vgg16.single_stream``'s (VGG-16 at 1): which
+  route, which tile, the grid against the card's SMs; the pooled, RGB and
+  small-M launches keep the sm90 plan.
 * The kernel's arithmetic, emulated in numpy: each fp32 operand split into
   ``hi = tf32(a)`` and ``lo = tf32(a - hi)`` with ``cvt.rna`` semantics
   (round to nearest, ties away from zero, 10 stored mantissa bits), the
@@ -12,11 +16,17 @@
   at ``chip_smoke.KERNEL_TOL`` on the stem's blocks, a 7x7 layer with
   K = 4,608 and a stride-2 layer; one TF32 product alone misses that
   tolerance at K = 4,608, which is why the kernel takes three.
+* The wide route's loop, emulated: B split once (``split_weight``) in its
+  k order, A split the same way in registers, each stage's 12 products
+  (three for each k step of 8, in the stage's k order) summed toward zero
+  from zero and the stages to nearest; held against the Pallas kernel
+  and within the drift test's bounds.
 * B3's fp32 route takes the head dim of every ``ARCHS`` entry with
   attention.
 
 The kernel itself runs only on the card: ``tests/test_torch_cuda.py``.
 """
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -59,17 +69,36 @@ def resnet_convs(request):
 
 
 def test_route_takes_every_resnet50_plan_conv(resnet_convs):
-    # distinct convs of the H100 plan (B1's tile): 25 at batch 1, 24 at 8
-    assert len(resnet_convs) == {1: 25, 8: 24}[resnet_convs[0]["wl"].batch]
+    # distinct convs of the H100 plan (B1's tile): 25 at batch 1, 24 at 8;
+    # the wide route takes 4 of a batch-1 predict's 53 (the 56x56 layers
+    # with 256 columns) and 36 of a batch-8 one's
+    batch = resnet_convs[0]["wl"].batch
+    assert len(resnet_convs) == {1: 25, 8: 24}[batch]
+    wide = 0
     for c in resnet_convs:
-        assert kmod._route(*SMOKE.plan_shapes(c)) == "sm90", \
-            SMOKE.wl_name(c)
+        route = kmod._route(*SMOKE.plan_shapes(c))
+        assert route in ("sm90", "sm90_wide"), SMOKE.wl_name(c)
+        assert route == kmod.launch_plan(*SMOKE.plan_shapes(c))["route"]
+        wide += c["count"] * (route == "sm90_wide")
+    assert wide == {1: 4, 8: 36}[batch]
 
 
 @pytest.mark.parametrize("name", ["densenet_concat", "avgpool_ceil_asym"])
 def test_route_takes_the_extra_cases(name):
     (c,) = [c for c in SMOKE.extra_cases() if c["name"] == name]
     assert kmod._route(*SMOKE.plan_shapes(c)) == "sm90"
+
+
+@pytest.mark.parametrize("name,bn", [("densenet_concat_b32", 64),
+                                     ("inception_1x7_b32", 128)])
+def test_wide_route_takes_the_wide_cases(name, bn):
+    """chip_smoke's edges of the wide route: a concat write with its
+    copy-through (32 columns: the 64-column tile) and Inception's 1x7."""
+    (c,) = [c for c in SMOKE.wide_cases() if c["name"] == name]
+    p = kmod.launch_plan(*SMOKE.plan_shapes(c))
+    assert kmod._route(*SMOKE.plan_shapes(c)) == "sm90_wide"
+    assert (p["bm"], p["bn"], p["cs"]) == (128, bn, 1)
+    assert 2 * p["tiles_m"] * p["tiles_n"] >= kmod.SMS
 
 
 def test_launch_plans_fit_the_card(resnet_convs):
@@ -81,10 +110,15 @@ def test_launch_plans_fit_the_card(resnet_convs):
         assert p["tiles_m"] <= 65535
         assert p["cs"] in (1, 2, 4, 8)
         assert p["kt_per"] * p["cs"] >= kt > (p["cs"] - 1) * p["kt_per"]
-        assert p["tiles_n"] * kmod.BN >= w[0] * w[5]
+        assert p["tiles_n"] * p["bn"] >= w[0] * w[5]
         if spec.pool is not None:
             assert p["cs"] == 1
         assert p["vec"] == (4 if x[4] % 4 == 0 else 1)
+        if p["route"] == "sm90_wide":
+            assert p["cs"] == 1 and p["bm"] == kmod.WIDE_BM
+            assert p["smem"] == kmod.wide_smem_bytes(p["bn"])
+            assert p["tiles_m"] * kmod.WIDE_BM >= x[0] * (
+                (x[2] - w[2]) // stride + 1) * ((x[3] - w[3]) // stride + 1)
 
 
 def test_small_layers_split_k_to_fill_the_card():
@@ -121,10 +155,162 @@ def test_route_refuses_other_dtypes():
 def test_smem_bytes_is_the_kernels_layout():
     """Two stages of (64 + 64) rows x 128 bytes, hi and lo; three row
     tables of 64 ints; the k-offset table; the patch rows of 64 + 4
-    floats; 1,024 bytes of slack."""
+    floats; 1,024 bytes of slack.  The wide route: six stages of B's hi
+    and lo (BN rows x 128 bytes each), two 8-byte barriers a stage, 1,024
+    bytes of slack."""
     assert kmod.smem_bytes(5, 289) == \
         65536 + 768 + 640 + 289 * 68 * 4 + 1024
     assert kmod.smem_bytes(2, 0) == 65536 + 768 + 256 + 1024
+    assert kmod.wide_smem_bytes(128) == 6 * 2 * 16384 + 96 + 1024
+    assert kmod.wide_smem_bytes(64) == 6 * 2 * 8192 + 96 + 1024
+    assert max(map(kmod.wide_smem_bytes, kmod.WIDE_BN)) <= kmod.SMEM_MAX
+
+
+# ---------------------------------------------------------------------------
+# the wide route's choice at the benchmark's two cells
+# ---------------------------------------------------------------------------
+
+# ResNet-50 at batch 32 (resnet50.offline): every distinct conv of the
+# plan, its route and tile width.  The RGB stem (pooled, 4-byte loads)
+# keeps the sm90 route; the other 52 convs of a predict take the wide one:
+# 64 columns where N is 64, and where 128 would leave a grid of 1-2 waves
+# worse filled (the 7x7 stage's 52 tiles become 104; 196 become 392).
+RESNET50_B32 = {
+    "c3_k64_h224_r7_s2_p3_ic3_oc64_maxpool": ("sm90", 64),
+    "c64_k64_h56_r1_s1_p0_ic64_oc64": ("sm90_wide", 64),
+    "c64_k64_h56_r3_s1_p1_ic64_oc64": ("sm90_wide", 64),
+    "c64_k256_h56_r1_s1_p0_ic64_oc256": ("sm90_wide", 128),
+    "c64_k256_h56_r1_s1_p0_ic64_oc256_res": ("sm90_wide", 128),
+    "c256_k64_h56_r1_s1_p0_ic256_oc64": ("sm90_wide", 64),
+    "c256_k128_h56_r1_s1_p0_ic256_oc128": ("sm90_wide", 128),
+    "c128_k128_h56_r3_s2_p1_ic128_oc128": ("sm90_wide", 64),
+    "c256_k512_h56_r1_s2_p0_ic256_oc512": ("sm90_wide", 128),
+    "c128_k512_h28_r1_s1_p0_ic128_oc512_res": ("sm90_wide", 128),
+    "c512_k128_h28_r1_s1_p0_ic512_oc128": ("sm90_wide", 64),
+    "c128_k128_h28_r3_s1_p1_ic128_oc128": ("sm90_wide", 64),
+    "c512_k256_h28_r1_s1_p0_ic512_oc128": ("sm90_wide", 128),
+    "c256_k256_h28_r3_s2_p1_ic128_oc128": ("sm90_wide", 128),
+    "c512_k1024_h28_r1_s2_p0_ic512_oc1024": ("sm90_wide", 128),
+    "c256_k1024_h14_r1_s1_p0_ic128_oc1024_res": ("sm90_wide", 128),
+    "c1024_k256_h14_r1_s1_p0_ic1024_oc128": ("sm90_wide", 128),
+    "c256_k256_h14_r3_s1_p1_ic128_oc128": ("sm90_wide", 128),
+    "c1024_k512_h14_r1_s1_p0_ic1024_oc128": ("sm90_wide", 64),
+    "c512_k512_h14_r3_s2_p1_ic128_oc512": ("sm90_wide", 64),
+    "c1024_k2048_h14_r1_s2_p0_ic1024_oc2048": ("sm90_wide", 128),
+    "c512_k2048_h7_r1_s1_p0_ic512_oc2048_res": ("sm90_wide", 128),
+    "c2048_k512_h7_r1_s1_p0_ic2048_oc512": ("sm90_wide", 64),
+    "c512_k512_h7_r3_s1_p1_ic32_oc512": ("sm90_wide", 64),
+}
+# VGG-16 at batch 1 (vgg16.single_stream): the pooled convs and the RGB
+# first keep the sm90 route, so do the 28x28 and 14x14 ones (too few
+# 128-row tiles); s2c1, s3c1 and s3c2 take the wide one
+VGG16_B1 = {
+    "c3_k64_h224_r3_s1_p1_ic3_oc64": ("sm90", 64),
+    "c64_k64_h224_r3_s1_p1_ic64_oc64_maxpool": ("sm90", 64),
+    "c64_k128_h112_r3_s1_p1_ic64_oc128": ("sm90_wide", 128),
+    "c128_k128_h112_r3_s1_p1_ic128_oc128_maxpool": ("sm90", 64),
+    "c128_k256_h56_r3_s1_p1_ic128_oc64": ("sm90_wide", 64),
+    "c256_k256_h56_r3_s1_p1_ic64_oc64": ("sm90_wide", 64),
+    "c256_k256_h56_r3_s1_p1_ic64_oc64_maxpool": ("sm90", 64),
+    "c256_k512_h28_r3_s1_p1_ic64_oc64": ("sm90", 64),
+    "c512_k512_h28_r3_s1_p1_ic64_oc64": ("sm90", 64),
+    "c512_k512_h28_r3_s1_p1_ic64_oc64_maxpool": ("sm90", 64),
+    "c512_k512_h14_r3_s1_p1_ic64_oc64": ("sm90", 64),
+    "c512_k512_h14_r3_s1_p1_ic64_oc64_maxpool": ("sm90", 64),
+}
+CELL_PLANS = {("resnet-50", 32): RESNET50_B32, ("vgg-16", 1): VGG16_B1}
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_convs(model: str, batch: int) -> dict:
+    return {SMOKE.wl_name(c): c for c in SMOKE.plan_convs(model, batch, 224)}
+
+
+@pytest.mark.parametrize("model,batch", sorted(CELL_PLANS))
+def test_cell_plans_have_these_convs(model, batch):
+    convs = _cell_convs(model, batch)
+    assert set(convs) == set(CELL_PLANS[model, batch])
+    wide = sum(c["count"] for name, c in convs.items()
+               if CELL_PLANS[model, batch][name][0] == "sm90_wide")
+    assert (wide, sum(c["count"] for c in convs.values())) == \
+        {"resnet-50": (52, 53), "vgg-16": (3, 13)}[model]
+
+
+@pytest.mark.parametrize("model,batch,name", [
+    (m, b, name) for (m, b), table in sorted(CELL_PLANS.items())
+    for name in table])
+def test_cell_conv_route_and_tile(model, batch, name):
+    """The route and tile width of one conv of a cell's plan; a wide grid
+    fills half the card or more, each tile width's shared memory fits, and
+    the wide plan covers the conv's M and N."""
+    route, bn = CELL_PLANS[model, batch][name]
+    c = _cell_convs(model, batch)[name]
+    x, w, stride, spec = SMOKE.plan_shapes(c)
+    p = kmod.launch_plan(x, w, stride, spec)
+    assert kmod._route(x, w, stride, spec) == route
+    assert (p["route"], p["bn"]) == (route, bn)
+    assert p["smem"] <= kmod.SMEM_MAX
+    oh, ow = (x[2] - w[2]) // stride + 1, (x[3] - w[3]) // stride + 1
+    m, ncols = x[0] * oh * ow, w[0] * w[5]
+    if route == "sm90_wide":
+        assert p["bm"] == 128 and p["cs"] == 1
+        assert p["tiles_m"] == -(-m // 128)
+        assert p["tiles_n"] == -(-ncols // bn)
+        assert 2 * p["tiles_m"] * p["tiles_n"] >= kmod.SMS
+        assert p["smem"] == kmod.wide_smem_bytes(bn)
+        assert kmod.wide_tile(m, ncols) == bn
+    else:
+        assert (p["bm"], p["bn"]) == (kmod.BM, kmod.BN)
+        assert spec.pool is not None or x[4] % 32 or \
+            kmod.wide_tile(m, ncols) == 0
+
+
+@pytest.mark.parametrize("m,ncols,bn", [
+    (1568, 512, 64),     # 7x7 at 32: 52 tiles of 128 columns, 104 of 64
+    (1568, 2048, 128),   # 208 tiles: 2 waves at 128 or 4 at 64
+    (6272, 256, 128),    # 14x14 at 32: 98 tiles, a wave, kept at 128
+    (25088, 128, 64),    # 28x28 at 32: 196 tiles (2 waves) or 392 (3)
+    (100352, 64, 64),    # 64 columns: the 64-column tile alone
+    (392, 512, 0),       # 7x7 at 8: 32 tiles of 64, too few
+    (49, 2048, 0),       # 7x7 at 1: one row tile
+])
+def test_wide_tile_by_shape(m, ncols, bn):
+    assert kmod.wide_tile(m, ncols) == bn
+
+
+# the sm90 plans that the wide route leaves as they were: (model, batch,
+# conv) -> (cs, tiles_m, tiles_n, kt_per, smem)
+KEPT_PLANS = {
+    # the RGB stem, pooled, 4-byte loads, at 32 and 1
+    ("resnet-50", 32, "c3_k64_h224_r7_s2_p3_ic3_oc64_maxpool"):
+        (1, 32 * 49, 1, 5, 146576),
+    ("resnet-50", 1, "c3_k64_h224_r7_s2_p3_ic3_oc64_maxpool"):
+        (1, 49, 1, 5, 146576),
+    # VGG-16's pooled 14x14 conv: K = 4,608 never split
+    ("vgg-16", 1, "c512_k512_h14_r3_s1_p1_ic64_oc64_maxpool"):
+        (1, 1, 8, 144, 139072),
+    # batch 1's small layers, K split over a cluster
+    ("resnet-50", 1, "c512_k512_h7_r3_s1_p1_ic64_oc64"):
+        (8, 1, 8, 18, 69632),
+    ("resnet-50", 1, "c2048_k512_h7_r1_s1_p0_ic64_oc64"):
+        (8, 1, 8, 8, 68352),
+    ("resnet-50", 1, "c1024_k2048_h14_r1_s2_p0_ic128_oc64"):
+        (4, 1, 32, 8, 68352),
+    ("vgg-16", 1, "c512_k512_h14_r3_s1_p1_ic64_oc64"):
+        (4, 4, 8, 36, 71936),
+}
+
+
+@pytest.mark.parametrize("key", sorted(KEPT_PLANS),
+                         ids=lambda k: f"{k[0]}-b{k[1]}-{k[2]}")
+def test_pooled_rgb_and_small_layers_keep_the_sm90_plan(key):
+    model, batch, name = key
+    convs = {SMOKE.wl_name(c): c
+             for c in SMOKE.plan_convs(model, batch, 224)}
+    p = kmod.launch_plan(*SMOKE.plan_shapes(convs[name]))
+    assert p["route"] == "sm90" and (p["bm"], p["bn"]) == (64, 64)
+    assert (p["cs"], p["tiles_m"], p["tiles_n"], p["kt_per"],
+            p["smem"]) == KEPT_PLANS[key]
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +345,9 @@ def test_rna_tf32_rounds_to_nearest_ties_away():
     assert np.all(np.abs(a - hi - lo) <= 2.0 ** -22 * np.abs(a))
 
 
-def emulate(x: np.ndarray, w: np.ndarray, stride: int, products: int = 3):
-    """The kernel's implicit GEMM on blocked numpy operands: A (pixels, K)
-    and B (K, channels) in the weight's K order (ci, dh, dw, ic), each
-    split into tf32 hi and lo, and ``lo@hi + hi@lo + hi@hi`` in fp32
-    (``products=1``: ``hi@hi`` alone).  Returns the fp32 sums as
-    (n, Ko, oh, ow, oc_bn)."""
+def _gemm_operands(x, w, stride):
+    """A (pixels, K) and B (K, channels) of the implicit GEMM, K in the
+    weight's order (ci, dh, dw, ic)."""
     n, ci, hp, wp, icb = x.shape
     ko, _, kh, kw, _, ocb = w.shape
     oh, ow = (hp - kh) // stride + 1, (wp - kw) // stride + 1
@@ -172,12 +355,21 @@ def emulate(x: np.ndarray, w: np.ndarray, stride: int, products: int = 3):
             for c in range(ci) for dh in range(kh) for dw in range(kw)]
     a = np.concatenate(cols, axis=-1).reshape(n * oh * ow, -1)
     b = w.transpose(1, 2, 3, 4, 0, 5).reshape(ci * kh * kw * icb, ko * ocb)
+    return a, b, (n, oh, ow, ko, ocb)
+
+
+def emulate(x: np.ndarray, w: np.ndarray, stride: int, products: int = 3):
+    """The kernel's implicit GEMM on blocked numpy operands: A (pixels, K)
+    and B (K, channels) in the weight's K order (ci, dh, dw, ic), each
+    split into tf32 hi and lo, and ``lo@hi + hi@lo + hi@hi`` in fp32
+    (``products=1``: ``hi@hi`` alone).  Returns the fp32 sums as
+    (n, Ko, oh, ow, oc_bn)."""
+    a, b, shape = _gemm_operands(x, w, stride)
     (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
     acc = a_hi @ b_hi
     if products == 3:
         acc = (a_lo @ b_hi + a_hi @ b_lo) + acc
-    return acc.astype(np.float32).reshape(n, oh, ow, ko, ocb) \
-        .transpose(0, 3, 1, 2, 4)
+    return acc.astype(np.float32).reshape(shape).transpose(0, 3, 1, 2, 4)
 
 
 # (name, batch, cin, cout, hw, k, stride, pad, ic_bn, oc_bn, pool):
@@ -304,6 +496,117 @@ def test_round_toward_zero_accumulator_drifts_per_stage_sums_hold():
     assert abs(staged_drift) < abs(drift) / 10
     assert np.abs(staged - exact).max() < np.abs(one - exact).max() / 4
     np.testing.assert_allclose(staged, exact, **KERNEL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the wide route's loop, emulated
+# ---------------------------------------------------------------------------
+
+def _stage_order(k: int) -> np.ndarray:
+    """The wide route's k slots: stage g's slot p holds k 32 g +
+    WIDE_K_ORDER[p]."""
+    return np.concatenate([32 * g + np.array(kmod.WIDE_K_ORDER)
+                           for g in range(k // 32)])
+
+
+def emulate_wide(x, w, stride):
+    """The wide route's loop: A split into hi and lo in registers, B from
+    ``split_weight`` (hi and lo, each stage's k in ``WIDE_K_ORDER``), each
+    stage of 32 k slots summed from zero on a model of the tensor cores
+    (every product of a k step of 8 slots added rounding toward zero:
+    lo*hi, hi*lo, hi*hi), the stage sums added to the fp32 sums rounding to
+    nearest.  Returns the sums as (n, Ko, oh, ow, oc_bn)."""
+    a, _, shape = _gemm_operands(x, w, stride)
+    bs = kmod.split_weight(torch.from_numpy(w)).numpy()
+    b_hi, b_lo = bs[0].T, bs[1].T                   # (K in slots, N)
+    a_hi, a_lo = (t[:, _stage_order(a.shape[1])] for t in split(a))
+    acc = np.zeros((a.shape[0], b_hi.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 32):
+        stage = np.zeros_like(acc)
+        for k in range(k0, k0 + 32, 8):
+            for pa, pb in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                stage = rz32(stage + pa[:, k:k + 8].astype(np.float64)
+                             @ pb[k:k + 8].astype(np.float64))
+        acc = acc + stage
+    return acc.reshape(shape).transpose(0, 3, 1, 2, 4)
+
+
+def test_wide_k_order_is_each_threads_loads():
+    """Every k of a stage once; thread c's slots c and c + 4 over the four
+    k steps are the 8 values it loads, k 4c .. 4c + 3 then 16 + 4c ..
+    16 + 4c + 3, two of them a step."""
+    order = np.array(kmod.WIDE_K_ORDER).reshape(4, 8)     # (kk, slot)
+    assert sorted(order.ravel()) == list(range(32))
+    for c in range(4):
+        got = [v for kk in range(4) for v in (order[kk, c], order[kk, c + 4])]
+        assert got == [4 * c + i for i in range(4)] + \
+            [16 + 4 * c + i for i in range(4)]
+
+
+def test_split_weight_is_the_routes_b():
+    """``split_weight``'s hi and lo are the threads' split of the sm90
+    route (``cvt.rna`` twice) bit for bit, each output channel's K in a row,
+    each stage's k in the wide order."""
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=(2, 3, 3, 3, 32, 16)).astype(np.float32)
+    bs = kmod.split_weight(torch.from_numpy(w)).numpy()
+    b = w.transpose(0, 5, 1, 2, 3, 4).reshape(32, -1)       # (N, K)
+    hi, lo = split(b)
+    order = _stage_order(b.shape[1])
+    assert bs.shape == (2, 32, 864)
+    np.testing.assert_array_equal(bs[0], hi[:, order])
+    np.testing.assert_array_equal(bs[1], lo[:, order])
+    np.testing.assert_array_equal(
+        kmod.rna_tf32(torch.from_numpy(b)).numpy(), hi)
+
+
+# the wide route's cases (ic_bn % 32 == 0): the 7x7 layer with K = 4,608,
+# and a stride-2 14x14 3x3 layer (K = 2,304)
+WIDE_EMU_CASES = [
+    EMU_CASES[1],
+    ("c256_k256_h14_s2_ic32", 1, 256, 256, 14, 3, 2, 1, 32, 128, None),
+]
+
+
+@pytest.fixture(scope="module", params=WIDE_EMU_CASES,
+                ids=[c[0] for c in WIDE_EMU_CASES])
+def wide_case(request):
+    case = request.param
+    x, w, shift = _emu_operands(case)
+    return {"case": case, "x": x, "w": w, "shift": shift,
+            "want": _pallas(x, w, shift, case[6], None)}
+
+
+def test_wide_loop_emulation_matches_pallas(wide_case):
+    c = wide_case
+    got = _port_epilogue(emulate_wide(c["x"], c["w"], c["case"][6]),
+                         c["shift"], None)
+    np.testing.assert_allclose(got, c["want"], **KERNEL_TOL)
+
+
+def test_wide_loop_drifts_no_more_than_the_sm90_loop():
+    """The wide order changes which products meet in which k step, not how
+    often the sums are rounded: on the 7x7 layer (K = 4,608) its drift
+    toward zero, like the sm90 route's per-stage sums, stays a tenth of
+    one accumulator's (``test_round_toward_zero_accumulator_...``)."""
+    x, w, _ = _emu_operands(EMU_CASES[1])
+    a, b, shape = _gemm_operands(x, w, 1)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    wide = emulate_wide(x, w, 1).transpose(0, 2, 3, 1, 4).reshape(
+        exact.shape)
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    one = np.zeros(exact.shape, np.float32)
+    for k in range(0, a.shape[1], 8):
+        for pa, pb in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+            one = rz32(one + pa[:, k:k + 8].astype(np.float64)
+                       @ pb[k:k + 8].astype(np.float64))
+
+    def outward(v):
+        return float(((v - exact) * np.sign(exact)).sum()
+                     / np.abs(exact).sum())
+
+    assert abs(outward(wide)) < abs(outward(one)) / 10
+    np.testing.assert_allclose(wide, exact, **KERNEL_TOL)
 
 
 # ---------------------------------------------------------------------------

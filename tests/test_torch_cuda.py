@@ -173,7 +173,8 @@ def test_sm90_route_at_every_resnet50_plan_conv(card, batch):
              8: "c512_k512_h7_r3_s1_p1_ic64_oc512"}[batch]
     assert {"c3_k64_h224_r7_s2_p3_ic3_oc64_maxpool",
             "c256_k512_h56_r1_s2_p0_ic256_oc512", seven} <= names
-    # each on the sm90 route, bit-identical twice, within KERNEL_TOL
+    # each on the route _route names (sm90, or sm90_wide where the grid
+    # fills the card), bit-identical twice, within KERNEL_TOL
     smoke.phase_kernels(card, convs)
 
 
@@ -195,17 +196,46 @@ def test_sm90_route_at_the_extra_cases(card, name):
                                if c["name"] == name])
 
 
+@pytest.mark.parametrize("name", ["densenet_concat_b32",
+                                  "inception_1x7_b32"])
+def test_sm90_wide_route_at_the_wide_cases(card, name):
+    smoke = _smoke()
+    smoke.phase_kernels(card, [c for c in smoke.wide_cases()
+                               if c["name"] == name])
+
+
+def test_resnet50_batch32_predict_takes_the_wide_route(card):
+    """resnet50.offline's batch: 52 of a predict's 53 convs on the wide
+    route, the pooled RGB stem on sm90; the probabilities held to the
+    plain version's session."""
+    sess = compile("resnet-50", (32, 3, 224, 224), device=card)
+    x = torch.randn(32, 3, 224, 224, device=card)
+    sess.predict(x)
+    before = dict(kmod.conv2d_nchwc.launches_by_route)
+    y = sess.predict(x)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in
+            kmod.conv2d_nchwc.launches_by_route.items()} == {
+        "sm90": 1, "sm90_wide": 52}
+    plain = compile("resnet-50", (32, 3, 224, 224), device=card,
+                    use_kernel=False)
+    np.testing.assert_allclose(y.cpu().numpy(), plain.predict(x).cpu()
+                               .numpy(), rtol=1e-3, atol=1e-5)
+
+
 @pytest.mark.parametrize("batch", [1, 8])
 def test_resnet50_predict_launches_only_the_sm90_route(card, batch):
     sess = compile("resnet-50", (batch, 3, 64, 64), device=card)
     plan = sess.plan_for(batch).planned
     n_blocks = sum(1 for n in plan.graph.topo_order() if n.op == "conv_block")
     x = torch.randn(batch, 3, 64, 64, device=card)
-    before = kmod.conv2d_nchwc.launches_by_route["sm90"]
+    before = dict(kmod.conv2d_nchwc.launches_by_route)
     y = sess.predict(x)
     torch.cuda.synchronize()
+    # at 64 pixels every grid is too small for the wide route
     assert kmod.conv2d_nchwc.launches_by_route == {
-        "sm90": before + n_blocks} and n_blocks == 53
+        "sm90": before["sm90"] + n_blocks,
+        "sm90_wide": before["sm90_wide"]} and n_blocks == 53
     ref = compile("resnet-50", (batch, 3, 64, 64), device="cpu")
     np.testing.assert_allclose(y.cpu().numpy(),
                                ref.predict(x.cpu()).numpy(), rtol=1e-3,
@@ -258,7 +288,8 @@ def test_densenet121_predict_launches_only_the_sm90_route(card):
     probs, logits = smoke.with_logits(sess.specialize(1)).predict(x)
     torch.cuda.synchronize()
     assert kmod.conv2d_nchwc.launches_by_route == {
-        "sm90": before["sm90"] + n_convs} and n_convs == 120
+        "sm90": before["sm90"] + n_convs,
+        "sm90_wide": before["sm90_wide"]} and n_convs == 120
     ref = compile("densenet-121", (1, 3, 64, 64), device="cpu")
     want_p, want_l = (t.numpy() for t in
                       smoke.with_logits(ref.specialize(1)).predict(x.cpu()))

@@ -252,7 +252,9 @@ def test_machine_defaults_are_the_references():
 def test_b1_smem_is_the_launch_plans():
     """The cost model's copy of B1's staged shared memory equals the
     launch plan's, at every conv of ResNet-50's and VGG-16's H100 plans
-    and the pooled stem."""
+    and the pooled stem, and of ResNet-50's at resnet50.offline's batch
+    of 32 (all but the stem on the wide route), with each conv's
+    blocking."""
     import importlib.util
     from pathlib import Path
 
@@ -263,9 +265,11 @@ def test_b1_smem_is_the_launch_plans():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     convs = (smoke.plan_convs("resnet-50", 1, 224)
-             + smoke.plan_convs("vgg-16", 1, 224) + smoke.extra_cases())
+             + smoke.plan_convs("vgg-16", 1, 224) + smoke.extra_cases()
+             + smoke.plan_convs("resnet-50", 32, 224))
     for c in convs:
-        assert t_cost.b1_smem_bytes(c["wl"], t_cost.H100) == \
+        assert t_cost.b1_smem_bytes(c["wl"], t_cost.H100, c["ic_bn"],
+                                    c["oc_bn"]) == \
             launch_plan(*smoke.plan_shapes(c))["smem"], smoke.wl_name(c)
 
 
