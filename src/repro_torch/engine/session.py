@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import shutil
 import threading
 import warnings
@@ -373,6 +374,35 @@ def _params_from_flat(leaves: Dict[str, torch.Tensor], device) -> Params:
 # The session
 # ---------------------------------------------------------------------------
 
+# what the ``plan`` span's note counts of an op: (nodes key, bytes key)
+_BETWEEN_CONVS = {
+    "layout_transform": ("relayouts", "relayout_bytes"),
+    "batch_norm": ("eltwise_nodes", "eltwise_bytes"),
+    "relu": ("eltwise_nodes", "eltwise_bytes"),
+    "concat_alloc": ("concat_seeds", "concat_seed_bytes"),
+}
+
+
+def between_convs(graph: Graph) -> Dict[str, int]:
+    """The executed graph's work outside its convs, as the ``plan`` span's
+    note counts it: ``relayouts`` (``layout_transform`` nodes),
+    ``eltwise_nodes`` (standalone ``batch_norm`` and ``relu``),
+    ``concat_seeds`` (``concat_alloc``: the earlier channels copied into a
+    new buffer) with their ``*_bytes`` (each node's output read once and
+    written once, in fp32), and ``concat_writes`` (conv blocks storing
+    their channels at an offset of a concat buffer)."""
+    out = dict.fromkeys([k for keys in _BETWEEN_CONVS.values()
+                         for k in keys] + ["concat_writes"], 0)
+    for node in graph.topo_order():
+        if node.op == "conv_block" and node.attrs.get("concat_into"):
+            out["concat_writes"] += 1
+        keys = _BETWEEN_CONVS.get(node.op)
+        if keys is not None:
+            out[keys[0]] += 1
+            out[keys[1]] += 2 * 4 * math.prod(node.shape)
+    return out
+
+
 class InferenceSession:
     """One compiled model: plans + bound weights, specialized per batch
     size.  Create with :func:`compile`; persist with :meth:`save` /
@@ -477,7 +507,8 @@ class InferenceSession:
         Double-checked under the session lock, so concurrent callers of an
         unseen batch size plan+compile it exactly once.  Each one is a cold
         ``specialize`` span (``repro_torch.trace``) holding ``plan`` (noted
-        with the passes of its ``PassReport``s) and ``bind``, and counts in
+        with the passes of its ``PassReport``s and the plan's work between
+        the convs, ``between_convs``) and ``bind``, and counts in
         ``plans_built``."""
         m = self._specialized.get(batch)     # lock-free fast path
         if m is not None:
@@ -502,9 +533,11 @@ class InferenceSession:
                         transform_bw=self.transform_bw, machine=self.machine,
                         search_budget=self.search_budget, device=self.device,
                         use_kernel=self.use_kernel)
-                    if plan.report is not None:
-                        trace.note(planning, passes=[
-                            (r.name, r.seconds) for r in plan.report.passes])
+                    passes = {} if plan.report is None else {
+                        "passes": [(r.name, r.seconds)
+                                   for r in plan.report.passes]}
+                    trace.note(planning, **passes,
+                               **between_convs(plan.planned.graph))
                 if (plan.report is not None
                         and plan.report.transform_bw is not None):
                     # calibrated once (measured tuning); reused by later

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import math
 import threading
 
 import pytest
@@ -201,6 +202,45 @@ def test_cold_spans_are_recorded_with_tracing_off(rec):
         assert split["seconds"][kind] == pytest.approx(want)
     assert split["seconds"]["specialize"] >= split["seconds"]["plan"] > 0
     assert split["kernel_loads"] == []
+
+
+# The plan's work between the convs at batch 32 under B1's machine model,
+# as the fusion pass leaves it: densenet-121's 58 dense layers each seed a
+# concat buffer (``concat_alloc``) that their 3x3 conv stores into at an
+# offset, and each of its 62 pre-activations on a concatenation (58 layers'
+# first BN-ReLU, 3 transitions', the head's) stays a standalone BN and ReLU.
+BETWEEN_CONVS = {
+    "densenet-121": {"relayouts": 67, "eltwise_nodes": 124,
+                     "concat_seeds": 58, "concat_writes": 58},
+    "resnet-50": {"relayouts": 4, "eltwise_nodes": 0, "concat_seeds": 0,
+                  "concat_writes": 0},
+}
+
+
+@pytest.mark.parametrize("model", sorted(BETWEEN_CONVS))
+def test_plan_note_counts_the_work_between_convs(rec, model):
+    """Every ``specialize``'s ``plan`` span is noted with the executed
+    graph's relayouts, standalone BN and ReLU, concat seeds and concat
+    writes, and their bytes: each node's output read and written once in
+    fp32."""
+    s = compile(model, (32, 3, 224, 224), device="cpu", eager=False)
+    s.specialize(32)
+    s.specialize(1)
+    plans = [x for x in rec.spans() if x.kind == "plan"]
+    assert len(plans) == 2
+    notes = [rec.notes[p.index] for p in plans]
+    assert all("passes" in n and "relayout_bytes" in n for n in notes)
+    note = notes[0]
+    assert {k: note[k] for k in BETWEEN_CONVS[model]} == BETWEEN_CONVS[model]
+    graph = s.plan_for(32).planned.graph
+    for op, key in (("layout_transform", "relayout_bytes"),
+                    ("concat_alloc", "concat_seed_bytes")):
+        nodes = [n for n in graph.topo_order() if n.op == op]
+        assert note[key] == sum(8 * math.prod(n.shape) for n in nodes)
+    eltwise = [n for n in graph.topo_order()
+               if n.op in ("batch_norm", "relu")]
+    assert note["eltwise_bytes"] == sum(8 * math.prod(n.shape)
+                                        for n in eltwise)
 
 
 def test_kernel_load_is_a_cold_span(rec, monkeypatch):
